@@ -1,6 +1,6 @@
-"""Tracked frames/s benchmark on the synthetic world (per-chip metric).
+"""Tracked frames/s benchmark on the synthetic world (per-device metric).
 
-The BASELINE.md protocol asks for "tracked frames/s per chip" alongside BA
+The BASELINE.md protocol asks for "tracked frames/s per device" alongside BA
 iters/s. Runs the full per-frame path (frame build -> match -> pose opt)
 over pre-rendered frames, excluding jit warm-up.
 
@@ -30,11 +30,9 @@ def main():
     args = ap.parse_args()
 
     import jax
-    from sqrtlm_slam_tpu.utils.cache import enable_persistent_cache
-    enable_persistent_cache()
+    from sqrtlm_slam_tpu.utils.cache import configure_jax
 
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        jax.config.update("jax_platforms", "cpu")
+    configure_jax()
 
     from sqrtlm_slam_tpu.eval.synthetic import (
         DEFAULT_CAM, SyntheticWorld, forward_trajectory,

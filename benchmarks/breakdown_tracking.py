@@ -1,12 +1,12 @@
-"""Per-stage composition of the tracking hot path on the real chip.
+"""Per-stage composition of the tracking hot path on the device.
 
 Slope-timed (N reps inside one jit; PERF.md methodology) stages of one
 tracked frame: frame build (ORB pyramid / blur+moments / descriptors /
 depth association) and the fused track step (matching + pose LM). This is
 the number that directs frontend kernel work — SURVEY §7.0 prescribes a
-Pallas FAST/BRIEF kernel only if extraction dominates.
+FAST/BRIEF kernel only if extraction dominates.
 
-Run on the real TPU chip:  python benchmarks/breakdown_tracking.py
+Run on a GPU:  python benchmarks/breakdown_tracking.py
 """
 
 import os
@@ -18,9 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from sqrtlm_slam_tpu.utils.cache import enable_persistent_cache
+from sqrtlm_slam_tpu.utils.cache import configure_jax
 
-enable_persistent_cache()
+configure_jax()
 
 import numpy as np
 
@@ -73,11 +73,11 @@ def slope(make_body, reps=(8, 40), n_timing=4):
     times = {}
     for n in reps:
         nn = jnp.int32(n)
-        float(run(nn, init))
+        jax.block_until_ready(run(nn, init))
         best = 1e9
         for _ in range(n_timing):
             t0 = time.perf_counter()
-            float(run(nn, init))
+            jax.block_until_ready(run(nn, init))
             best = min(best, time.perf_counter() - t0)
         times[n] = best
     n0, n1 = reps
@@ -90,8 +90,7 @@ def eps_of(s):
 
 def m_build_frame():
     # Consume EVERY output leaf: a partial consume lets XLA dead-code-
-    # eliminate whole stages (a depth+xy-only consume measured 1.5 ms for a
-    # frame whose descriptor path alone is ~40 ms).
+    # eliminate whole stages.
     def body(carry):
         img, s = carry
         f = build_frame(img, CAM, CFG, depth_img=DEPTH)

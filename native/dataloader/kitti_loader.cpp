@@ -1,6 +1,6 @@
 // Native KITTI sequence loader with background prefetch.
 //
-// TPU-native replacement for the runtime role of `kittiHelper`
+// Native replacement for the runtime role of `kittiHelper`
 // (/root/reference/Node/kittiHelper.cpp:25-182): the reference feeds frames
 // through ROS topics from a foreground loop; here a C++ thread pool decodes
 // PNG images (libpng) and velodyne .bin scans ahead of the SLAM loop so host

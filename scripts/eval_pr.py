@@ -101,10 +101,6 @@ def main():
     ap.add_argument("--dist-thresh", type=float, default=6.0)
     args = ap.parse_args()
 
-    import jax
-
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     from sqrtlm_slam_tpu.frontend import vocab as vocab_mod

@@ -1,9 +1,9 @@
-"""sqrtlm_slam_tpu — a TPU-native visual-LiDAR SLAM framework.
+"""sqrtlm_slam_tpu — a visual-LiDAR SLAM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 lutao98/SqrtLM-SLAM (ORB-SLAM2-derived visual tracking, LOAM-style LiDAR
 odometry, visual-LiDAR tight coupling, and square-root Levenberg-Marquardt
-bundle adjustment), built for TPU: struct-of-arrays map state, masked
+bundle adjustment), built for an accelerator: struct-of-arrays map state, masked
 fixed-capacity tensors, jit-compiled pipeline stages, and sharded distributed
 BA over a `jax.sharding.Mesh`.
 
@@ -12,7 +12,6 @@ Package layout
   geometry/   SO3 / SE3 / Sim3 Lie ops, Horn-Umeyama alignment
   optim/      robust losses, square-root LM engine, Schur-complement BA
   factors/    residual+Jacobian library (reprojection, LiDAR, pose-graph, Sim3)
-  ops/        Pallas TPU kernels + pure-XLA fallbacks (FAST, BRIEF, Hamming, ...)
   frontend/   ORB extraction, matching, vocabulary / BoW place recognition
   lidar/      ring virtualization, range image, feature extraction, odometry
   mapstore/   SoA keyframe / landmark stores, covisibility graph

@@ -1,6 +1,6 @@
 """Robust camera-pose estimation from 2D/3D matches — RANSAC, batched.
 
-TPU-native replacement of `PnPsolver` (EPnP + RANSAC,
+JAX replacement of `PnPsolver` (EPnP + RANSAC,
 /root/reference/src/algorithm/PnPsolver.cc:247-1491), used by
 relocalization (Tracking.cc:2334-2554) and as the no-prior fallback in
 tracking. Two estimators:

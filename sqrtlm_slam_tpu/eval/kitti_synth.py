@@ -46,9 +46,8 @@ def generate(
     step: float = 0.8,
     log=print,
 ) -> None:
-    from PIL import Image
-
     from ..factors.reprojection import Camera
+    from ..io.kitti import write_png_gray
     from .planeworld import (
         T_CAM_VELO,
         circuit_trajectory,
@@ -91,8 +90,9 @@ def generate(
     t0 = time.perf_counter()
     for i, T in enumerate(poses):
         img, _ = world.render(T, cam, H=KITTI_H, W=KITTI_W, noise_seed=i)
-        Image.fromarray(np.asarray(img).astype(np.uint8)).save(
-            os.path.join(seq_dir, "image_0", f"{i:06d}.png")
+        write_png_gray(
+            os.path.join(seq_dir, "image_0", f"{i:06d}.png"),
+            np.asarray(img).astype(np.uint8),
         )
         scan = world.lidar_scan(T, T_CAM_VELO, noise_seed=i)
         scan.tofile(os.path.join(seq_dir, "velodyne", f"{i:06d}.bin"))

@@ -2,7 +2,7 @@
 
 The reference publishes 15+ ROS topics into rviz (fusionsystem.cc:224-586:
 GT path, estimated path, prior-run overlays, keyframe markers, map clouds).
-Headless TPU runs get static artifacts instead: a top-down trajectory
+Headless runs get static artifacts instead: a top-down trajectory
 figure with optional ground truth + comparison overlays and the landmark
 cloud — the same side-by-side regression view `cfg/display.rviz` provides.
 """

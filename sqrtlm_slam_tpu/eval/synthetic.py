@@ -4,7 +4,7 @@ There is no camera simulator in the reference (it replays KITTI); this
 module provides a deterministic stand-in so the full pipeline
 (ORB -> matching -> pose opt -> keyframes -> local BA -> trajectory) can be
 exercised hermetically in CI and benchmarked without dataset files
-(SURVEY.md §4: the TPU build must carry CPU-runnable checks).
+(SURVEY.md §4: the accelerator build must carry CPU-runnable checks).
 
 Each world point carries a fixed random binary micro-pattern so BRIEF
 descriptors are discriminative across frames (plain dots would be mutually

@@ -1,6 +1,6 @@
 """Extrinsic calibration between sensor frames — batched GN on SE(3).
 
-TPU-native equivalent of the reference's `CalibrationFactor`
+JAX equivalent of the reference's `CalibrationFactor`
 (/root/reference/include/backend/lidarFactor.h:1551-1598), which refines the
 camera<-lidar extrinsic T_ext from corresponding features: a lidar point
 ``p_l`` should land on its camera-frame target after ``x_c = T_ext p_l``.

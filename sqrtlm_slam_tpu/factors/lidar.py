@@ -1,6 +1,6 @@
 """Analytic LiDAR residuals + Jacobians, batched over associated features.
 
-TPU-native equivalent of:
+JAX equivalent of:
   * g2o `EdgeLidarFlatPoint` (point-to-plane) and `EdgeLidarCornerPoint`
     (point-to-point) unary edges added by the reference author
     (/root/reference/Thirdparty/g2o/g2o/types/types_six_dof_expmap.h:205-262,

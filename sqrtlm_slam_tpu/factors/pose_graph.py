@@ -1,6 +1,6 @@
 """Relative-pose factors for SE(3) / Sim(3) pose graphs.
 
-TPU-native equivalent of:
+JAX equivalent of:
   * the Ceres `EndBackFactor` chain factors used by the LiDAR back-end
     pose graph (/root/reference/include/backend/lidarFactor.h:207-310,
     lidarOdom.cc:2467-2601)

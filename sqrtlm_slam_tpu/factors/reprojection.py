@@ -1,6 +1,6 @@
 """Analytic reprojection residuals + Jacobians, batched over edges.
 
-TPU-native equivalent of the reference's reprojection edges:
+JAX equivalent of the reference's reprojection edges:
   * g2o `EdgeSE3ProjectXYZOnlyPose` / `EdgeSE3ProjectXYZ`
     (used in /root/reference/src/backend/g2oOptimizer.cc:385-679, :704-1191)
   * mybackend `EdgeReprojectionPoseOnly` / `EdgeReprojectionXYZ` with analytic

@@ -1,6 +1,6 @@
 """Descriptor matching: batched Hamming distance + windowed/rotation-gated search.
 
-TPU-native redesign of the reference `ORBmatcher`
+JAX redesign of the reference `ORBmatcher`
 (/root/reference/src/frontend/ORBmatcher.cc): thresholds TH_HIGH=100,
 TH_LOW=50, HISTO_LENGTH=30 (:46-48), `DescriptorDistance` bit-count (:2096),
 `SearchByProjection` frame/local-map (:67, :1717), `SearchForInitialization`
@@ -8,10 +8,9 @@ TH_LOW=50, HISTO_LENGTH=30 (:46-48), `DescriptorDistance` bit-count (:2096),
 
 Instead of per-keypoint grid walks + candidate lists, the whole matcher is a
 masked (Q, T) Hamming matrix: XOR + popcount on uint32x8 packed descriptors
-(one fused XLA computation; Pallas kernel in ops/hamming.py for the hot
-path), with window constraints, mutual-best / ratio tests, and the rotation-
-consistency histogram applied as vectorized masks. All outputs are fixed-
-capacity index arrays with validity masks.
+(one fused XLA computation), with window constraints, mutual-best / ratio
+tests, and the rotation-consistency histogram applied as vectorized masks.
+All outputs are fixed-capacity index arrays with validity masks.
 """
 
 from __future__ import annotations
@@ -32,15 +31,12 @@ def hamming_matrix(desc_q: jnp.ndarray, desc_t: jnp.ndarray) -> jnp.ndarray:
     """Pairwise Hamming distances between packed descriptors.
 
     desc_q: (Q, 8) uint32; desc_t: (T, 8) uint32 -> (Q, T) int32 in [0, 256].
-    On TPU this dispatches to the tiled Pallas kernel (ops/hamming.py) —
-    VMEM-resident tiles, no (Q, T, 8) XOR intermediate in HBM.
+    XLA fuses the XOR, popcount and 8-word sum into one reduction, so the
+    (Q, T, 8) intermediate is never stored.
     """
-    if jax.default_backend() == "tpu":
-        from ..ops.hamming import hamming_matrix_pallas
-
-        return hamming_matrix_pallas(desc_q, desc_t)
-    x = jnp.bitwise_xor(desc_q[:, None, :], desc_t[None, :, :])
-    return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
+    with jax.named_scope("hamming_matrix"):
+        x = jnp.bitwise_xor(desc_q[:, None, :], desc_t[None, :, :])
+        return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 
 
 class MatchResult(NamedTuple):

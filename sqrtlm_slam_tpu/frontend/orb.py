@@ -1,6 +1,6 @@
 """ORB feature extraction — pyramid FAST + oriented BRIEF, tensorized for TPU.
 
-TPU-native redesign of the reference `ORBextractor`
+JAX redesign of the reference `ORBextractor`
 (/root/reference/src/frontend/ORBextractor.cc): image pyramid (:1224),
 FAST + quad-tree keypoint balancing (:692-1045), intensity-centroid
 orientation (:155-204) and steered BRIEF descriptors (:1204).
@@ -241,9 +241,8 @@ def _gaussian_kernel(size: int, sigma: float) -> np.ndarray:
 
 def _correlate2d(img: jnp.ndarray, kernels) -> jnp.ndarray:
     """SAME-padded 2-D cross-correlation of one image with C kernels via
-    ONE lax.conv call — the XLA TPU conv path. `jax.scipy.signal.convolve2d`
-    lowered to ~80 ms for the 8-level moment maps at 240x320 (measured,
-    benchmarks/breakdown_tracking.py); this form is MXU-friendly.
+    ONE lax.conv call, which XLA hands to its convolution library, instead
+    of `jax.scipy.signal.convolve2d`'s generic lowering.
 
     kernels: (C, kh, kw) -> returns (C, H, W)."""
     x = img[None, None].astype(jnp.float32)  # NCHW
@@ -293,9 +292,8 @@ def _brief_pattern(seed: int = 0, n_bits: int = 256, patch: int = 31) -> np.ndar
 def _orientation_maps(img: jnp.ndarray, patch: int) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Dense m10 / m01 moment maps over a circular patch via ROW PREFIX SUMS.
 
-    The direct 31x31 2-channel correlation was 37.5 of the 45 ms frame
-    build on-chip (breakdown_tracking, progressive-consumption split): a
-    961-tap kernel does 961·H·W MACs/channel. The circle is a stack of
+    A direct 31x31 2-channel correlation is a 961-tap kernel: 961·H·W
+    MACs/channel. The circle is a stack of
     horizontal spans, so each output row reduces to span sums of two
     horizontal prefix arrays (img and x·img):
 

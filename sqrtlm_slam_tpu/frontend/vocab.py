@@ -1,6 +1,6 @@
 """Binary vocabulary + bag-of-words place recognition — DBoW2 replacement.
 
-TPU-native redesign of the vendored DBoW2 stack
+JAX redesign of the vendored DBoW2 stack
 (/root/reference/Thirdparty/DBoW2: `TemplatedVocabulary` k-d word tree,
 `BowVector`/`FeatureVector`, L1 `ScoringObject`) and `KeyFrameDatabase`'s
 inverted index (/root/reference/src/algorithm/KeyFrameDatabase.cc:104-402).

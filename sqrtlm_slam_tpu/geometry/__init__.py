@@ -1,6 +1,6 @@
 """Lie-group geometry core: SO(3), SE(3), Sim(3), closed-form alignment.
 
-TPU-native replacement for the reference's Sophus + Converter layer."""
+JAX replacement for the reference's Sophus + Converter layer."""
 
 from . import align, se3, sim3, so3
 from .se3 import SE3

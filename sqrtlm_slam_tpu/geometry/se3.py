@@ -1,6 +1,6 @@
 """Batched SE(3) rigid transforms in JAX.
 
-TPU-native replacement for Sophus `SE3d` (reference:
+JAX replacement for Sophus `SE3d` (reference:
 /root/reference/Thirdparty/Sophus/sophus/se3.hpp) and the cv::Mat pose algebra
 scattered through the reference's `Converter`
 (/root/reference/include/utils/Converter.h:67-200).

@@ -1,12 +1,11 @@
 """Batched SO(3) Lie-group operations in JAX.
 
-TPU-native replacement for the vendored Sophus `SO3d`
+JAX replacement for the vendored Sophus `SO3d`
 (reference: /root/reference/Thirdparty/Sophus/sophus/so3.hpp) and the rotation
 parts of `Converter` (/root/reference/include/utils/Converter.h:67-200).
 
 All functions broadcast over arbitrary leading batch dimensions; rotations are
-stored as 3x3 matrices (the MXU-friendly representation — batched 3x3 matmuls
-fuse well under XLA). Quaternion helpers are provided for compact storage /
+stored as 3x3 matrices (batched 3x3 matmuls fuse well under XLA). Quaternion helpers are provided for compact storage /
 interpolation. Small-angle branches use Taylor expansions selected with
 `jnp.where` so everything stays jit- and vmap-safe.
 """

@@ -1,6 +1,6 @@
 """KITTI odometry dataset loading: images, velodyne, calibration, poses.
 
-TPU-native replacement of `kittiHelper` (/root/reference/Node/kittiHelper.cpp:
+Replacement of `kittiHelper` (/root/reference/Node/kittiHelper.cpp:
 37-182 — times.txt, gt poses, image_0/1, velodyne/*.bin readers) and the
 calibration parsing of `FusionSystem` (/root/reference/src/fusionsystem.cc:
 51-90 — P0/P2 projection rows and the Tr velodyne->cam extrinsic from the
@@ -15,6 +15,8 @@ Expected layout (KITTI odometry):
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -71,19 +73,109 @@ def read_poses(path: str) -> np.ndarray:
     return out
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(tag: bytes, body: bytes) -> bytes:
+    return (
+        struct.pack(">I", len(body)) + tag + body
+        + struct.pack(">I", zlib.crc32(tag + body))
+    )
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """Write (H, W) uint8 as an 8-bit grayscale PNG, every row Sub-filtered."""
+    a = np.asarray(img, np.uint8)
+    H, W = a.shape
+    sub = a.copy()
+    sub[:, 1:] = a[:, 1:] - a[:, :-1]  # uint8 arithmetic wraps mod 256
+    raw = np.concatenate([np.ones((H, 1), np.uint8), sub], axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(
+            _PNG_SIGNATURE
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+            + _png_chunk(b"IEND", b"")
+        )
+
+
+def _unfilter_average(row: np.ndarray, prev: np.ndarray) -> np.ndarray:
+    out = bytearray(len(row))
+    left = 0
+    for i, (f, up) in enumerate(zip(row.tolist(), prev.tolist())):
+        left = (f + ((left + up) >> 1)) & 0xFF
+        out[i] = left
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def _unfilter_paeth(row: np.ndarray, prev: np.ndarray) -> np.ndarray:
+    out = bytearray(len(row))
+    left = upleft = 0
+    for i, (f, up) in enumerate(zip(row.tolist(), prev.tolist())):
+        p = left + up - upleft
+        pa, pb, pc = abs(p - left), abs(p - up), abs(p - upleft)
+        pred = left if pa <= pb and pa <= pc else (up if pb <= pc else upleft)
+        left = (f + pred) & 0xFF
+        out[i] = left
+        upleft = up
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """Read an 8-bit grayscale, non-interlaced PNG -> (H, W) uint8.
+
+    A stdlib (zlib + struct) decoder covering the five PNG row filters, so
+    the KITTI path needs no imaging library. Sub and Up rows decode
+    vectorised; Average and Paeth rows decode pixel by pixel."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    W, H, depth, color, _, _, interlace = header
+    if depth != 8 or color != 0 or interlace != 0:
+        raise ValueError(
+            f"{path}: only 8-bit grayscale non-interlaced PNG is supported "
+            f"(bit depth {depth}, color type {color}, interlace {interlace})"
+        )
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(H, W + 1)
+    out = np.empty((H, W), np.uint8)
+    prev = np.zeros(W, np.uint8)
+    for y in range(H):
+        ftype, row = raw[y, 0], raw[y, 1:]
+        if ftype == 0:
+            cur = row
+        elif ftype == 1:
+            cur = np.cumsum(row, dtype=np.uint8)
+        elif ftype == 2:
+            cur = row + prev
+        elif ftype == 3:
+            cur = _unfilter_average(row, prev)
+        elif ftype == 4:
+            cur = _unfilter_paeth(row, prev)
+        else:
+            raise ValueError(f"{path}: bad PNG filter type {ftype} in row {y}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
 def read_image(path: str) -> np.ndarray:
-    """Grayscale image as float32 (H, W) in [0, 255] (PIL, cv2 fallback)."""
-    try:
-        from PIL import Image
-
-        img = np.asarray(Image.open(path).convert("L"))
-    except ImportError:
-        import cv2
-
-        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise FileNotFoundError(path)
-    return img.astype(np.float32)
+    """Grayscale image as float32 (H, W) in [0, 255]."""
+    return read_png_gray(path).astype(np.float32)
 
 
 class KittiSequence:

@@ -1,6 +1,6 @@
 """SE(3) pose-graph backend for the LiDAR odometry chain.
 
-TPU-native redesign of `art::Odom::BackEndForLoop` / `BackEndForGNSS`
+JAX redesign of `art::Odom::BackEndForLoop` / `BackEndForGNSS`
 (/root/reference/src/algorithm/lidarOdom.cc:2467-2601): the reference builds
 a Ceres problem over the frame chain with relative-pose `EndBackFactor`s
 (lidarFactor.h:207-310) plus a loop-closure constraint (or a GNSS anchor)

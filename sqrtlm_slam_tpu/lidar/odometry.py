@@ -1,6 +1,6 @@
 """LOAM-style LiDAR odometry: scan-to-local-map alignment + keyframe window.
 
-TPU-native redesign of `art::Odom` (/root/reference/src/algorithm/lidarOdom.cc):
+JAX redesign of `art::Odom` (/root/reference/src/algorithm/lidarOdom.cc):
   * `FrontEndForSLAM` (:1369-1572) — 5 outer iterations of {NN association
     against a voxel-filtered local map of the last 30 keyframes, Ceres solve
     with corner point-to-point (`LidarDistanceFactor`) and flat
@@ -101,7 +101,7 @@ def _association(pose: se3.SE3, pts_s, valid, grid: vmap.VoxelMap, max_dist):
 # `LidarPlaneFactor_{z_rot_xy_trans, z_trans, x_rot, y_rot, xy_rot_z_trans,
 # xyz_rot_xyz_trans}` (lidarFactor.h:493-901). Tangent order is
 # [tx, ty, tz, rx, ry, rz] (se3.retract); a zero masks that DoF out of the
-# solve (the TPU equivalent of a SizedCostFunction with zeroed Jacobian
+# solve (the batched equivalent of a SizedCostFunction with zeroed Jacobian
 # columns — one masked solve replaces six hand-written factor classes).
 DOF_PRESETS = {
     "z_rot_xy_trans": jnp.array([1.0, 1.0, 0.0, 0.0, 0.0, 1.0]),

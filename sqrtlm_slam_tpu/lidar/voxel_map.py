@@ -1,10 +1,10 @@
 """Voxel-hash nearest-neighbor search + voxel downsampling — kd-tree replacement.
 
-TPU-native substitute for `pcl::KdTreeFLANN` / `pcl::VoxelGrid` used
+JAX substitute for `pcl::KdTreeFLANN` / `pcl::VoxelGrid` used
 throughout the reference (tracking LiDAR local map `Tracking.cc:2263-2320`,
 scan-to-map association `lidarOdom.cc:1434-1462`, BA tight coupling
 `g2oOptimizer.cc:560-641`). Exact kd-trees are pointer-chasing and
-sequential; on TPU the same 0.2 m^2-radius association semantics are served
+sequential; here the same 0.2 m^2-radius association semantics are served
 by a **sorted voxel-hash grid**: points sorted by packed voxel key, queries
 gather bounded candidate runs from the 27 neighboring cells and reduce with
 top-k (SURVEY.md §7.0, §7.3). Recall is exact for any query whose true

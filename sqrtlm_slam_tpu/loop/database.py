@@ -1,6 +1,6 @@
 """Place-recognition database: BoW scoring over the keyframe matrix.
 
-TPU-native replacement of `KeyFrameDatabase`'s DBoW2 inverted index
+JAX replacement of `KeyFrameDatabase`'s DBoW2 inverted index
 (/root/reference/src/algorithm/KeyFrameDatabase.cc:104-402). Instead of a
 word-id -> keyframe-list inverted file walked per query, the whole keyframe
 BoW matrix is scored in one vectorized `sum(min(q, M))` pass (the DBoW2 L1

@@ -1,6 +1,6 @@
 """Sim(3) essential-graph optimization — the 7-DoF scale-drift correction.
 
-TPU-native redesign of `Optimizer::OptimizeEssentialGraph`
+JAX redesign of `Optimizer::OptimizeEssentialGraph`
 (/root/reference/src/backend/g2oOptimizer.cc:1212-1560): a pose graph over
 ALL keyframes with Sim3 vertices; edges are (a) the new loop edge(s) with
 their measured Sim3, (b) spanning-tree parent edges, (c) previous loop
@@ -11,9 +11,9 @@ Design: fixed-capacity edge SoA + dense blockwise normal equations. Each GN
 iteration is one jitted computation: vmapped 7-dim residual/Jacobian
 (factors/pose_graph.sim3_relative_residual_jac), scatter-add of 7x7 blocks
 into the dense (7K, 7K) Hessian, Cholesky solve. At reference scale
-(~1400 KFs -> 9800x9800) the dense factorization is a single large MXU
-workload (~320 GFLOP, milliseconds on a TPU chip) — the sparse CSparse
-factorization the reference uses has no TPU advantage at this size.
+(~1400 KFs -> 9800x9800) the dense factorization is a single large
+matrix workload (~320 GFLOP) — the sparse CSparse factorization the
+reference uses brings no advantage on an accelerator at this size.
 """
 
 from __future__ import annotations
@@ -64,18 +64,10 @@ def optimize_pose_graph(
 ) -> Tuple[PoseGraphProblem, jnp.ndarray]:
     """Damped GN on the Sim3 pose graph. Returns (problem', final chi2).
 
-    All contractions and the Cholesky run at f32 MXU precision
-    (default_matmul_precision "float32"): with bf16 multiplies the K*7
+    The contractions need true f32 products (utils/cache.py sets that
+    precision process-wide): with reduced-precision multiplies the K*7
     normal equations lose the small Jacobian couplings and the GN loop
-    DIVERGES at a few hundred keyframes (observed at K=600 on-chip while
-    CPU f32 converged)."""
-    with jax.default_matmul_precision("float32"):
-        return _optimize_pose_graph_impl(problem, num_iters, mu)
-
-
-def _optimize_pose_graph_impl(
-    problem: PoseGraphProblem, num_iters: int, mu: float
-) -> Tuple[PoseGraphProblem, jnp.ndarray]:
+    diverges at a few hundred keyframes."""
     K = problem.s.shape[0]
 
     def chi2_of(p: PoseGraphProblem):

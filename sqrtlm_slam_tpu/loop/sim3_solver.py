@@ -1,6 +1,6 @@
 """Sim(3) RANSAC between two keyframes from 3D-3D landmark matches.
 
-TPU-native redesign of `Sim3Solver`
+JAX redesign of `Sim3Solver`
 (/root/reference/src/algorithm/Sim3Solver.cc): the reference iterates
 RANSAC hypotheses sequentially (`iterate`, Sim3Solver.cc:207-294), each with
 Horn's closed-form (`ComputeSim3`, :319-460) and a two-directional

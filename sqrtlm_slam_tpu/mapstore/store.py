@@ -1,6 +1,6 @@
 """SoA map state: keyframes, landmarks, observations, covisibility graph.
 
-TPU-native redesign of the reference's pointer-graph data model
+JAX redesign of the reference's pointer-graph data model
 (/root/reference/src/data_structure/): `KeyFrame` (covisibility graph +
 spanning tree + loop edges, KeyFrame.h:107-210), `MapPoint` (observations,
 best descriptor, viewing normal + scale range, MapPoint.cc:118-657), `Map`

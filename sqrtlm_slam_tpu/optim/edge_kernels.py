@@ -1,13 +1,8 @@
 """Small closed-form kernels for the BA engine.
 
-Note on a measured dead end: a full SoA "component form" rewrite of the
-edge assembly (every Jacobian entry as its own flat (E,) array instead of
-(E, 3, 6) blocks) was implemented and benchmarked on-chip — it made
-assembly 3.5x SLOWER (14 ms -> 49 ms at E=786k) and the LM loop ~10x
-slower: XLA already lays out and fuses the (E, 3, 6) einsum chain well, and
-the ~100 explicitly materialized component arrays defeated its fusion.
-Keep the einsum formulation in optim/schur.py; what survives here are the
-closed-form helpers that do beat their library counterparts.
+The flat reference engine (optim/schur.py) keeps its einsum formulation
+over (E, 3, 6) blocks; what lives here are the closed-form helpers it uses
+in place of library calls.
 """
 
 from __future__ import annotations

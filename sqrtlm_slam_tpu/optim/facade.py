@@ -3,10 +3,10 @@
 Mirrors the reference's `Optimizer` facade (`Optimizer.h:50-69`, backend
 dispatch at `Optimizer.cc:26-107`) which switches between three backends
 (g2o / Ceres / mybackend) by compile-time flags. Here the three backends
-are the TPU engines, selected at runtime per instance:
+are the JAX engines, selected at runtime per instance:
 
   * ``"bucketed"`` (default) — the landmark-bucketed sqrt-Schur engine with
-    the fused Pallas assembly kernel (optim/schur_bucketed.py). Plays the
+    its rows-layout assembly (optim/schur_bucketed.py). Plays the
     role of the reference's default g2o path.
   * ``"flat"`` — the flat-edge dense-W Schur engine (optim/schur.py): the
     independently-implemented engine the bucketed one is validated against,

@@ -1,6 +1,6 @@
 """Generic damped Levenberg-Marquardt engine — jittable, vmap-safe.
 
-TPU-native redesign of the reference's hand-written solver
+JAX redesign of the reference's hand-written solver
 (/root/reference/src/backend/mybackend/problem.cc):
   * `Problem::Solve` LM loop with Nielsen gain-ratio damping
     (problem.cc:92-167, ComputeLambdaInitLM :591-630, IsGoodStepInLM :679-713)
@@ -38,9 +38,8 @@ class LMResult(NamedTuple):
 def _solve_damped(H: jnp.ndarray, b: jnp.ndarray, mu: jnp.ndarray) -> jnp.ndarray:
     """Solve (H + mu I) dx = -b via Cholesky with an LU fallback baked in.
 
-    `jnp.linalg.solve` lowers to a fused LU on TPU; for the small dense
-    systems this engine targets (6 to a few hundred dims) that is already
-    MXU-bound. The mu*I damping guarantees positive-definiteness for mu
+    The systems this engine targets are small and dense (6 to a few
+    hundred dims). The mu*I damping guarantees positive-definiteness for mu
     large enough, so no pivoting pathologies arise in practice.
     """
     D = H.shape[-1]

@@ -1,6 +1,6 @@
 """Robust loss functions (rho, rho', rho'') — batched, jit-safe.
 
-TPU-native equivalent of the reference mybackend losses
+JAX equivalent of the reference mybackend losses
 (/root/reference/src/backend/mybackend/loss_function.h:23-92: Trivial, Huber,
 Cauchy, Tukey) and the g2o Huber/Cauchy kernels used in pose optimization
 (/root/reference/src/backend/g2oOptimizer.cc:505-552, myOptimizer.cc:36-231).

@@ -1,6 +1,6 @@
 """Pose-only optimization (tracking) — jit-compiled, fixed-capacity, masked.
 
-TPU-native redesign of `Optimizer::PoseOptimization`
+JAX redesign of `Optimizer::PoseOptimization`
 (/root/reference/src/backend/g2oOptimizer.cc:385-679, myOptimizer.cc:36-231):
 
   * 4 rounds x 10 LM iterations; between rounds, edges are re-classified as

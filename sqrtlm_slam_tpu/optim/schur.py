@@ -1,6 +1,6 @@
 """Bundle adjustment via landmark Schur elimination — batched, jittable.
 
-TPU-native redesign of the reference's three BA backends behind one engine:
+JAX redesign of the reference's three BA backends behind one engine:
   * mybackend `Problem::SolveLinearSystem` — Schur complement marginalizing
     landmarks, block-diagonal Hmm inverted 3x3-wise, dense solve of the
     reduced camera system, landmark back-substitution
@@ -18,15 +18,15 @@ iteration is:
       -> robust whitening
       -> segment-sum assembly of Hpp (P,6,6), Hll (L,3,3), W (P*6, L, 3), b
       -> batched 3x3 inversion of damped Hll
-      -> reduced system  S = Hpp - W Hll^-1 W^T   (one big MXU matmul)
+      -> reduced system  S = Hpp - W Hll^-1 W^T   (one big matmul)
       -> dense Cholesky solve for pose increments (gauge-fixed rows pinned)
       -> landmark back-substitution (batched 3x3)
 
 The dense-W layout costs P*6*L*3 floats (e.g. 64 poses x 8192 landmarks =
-37 MB f32) — well within HBM for local BA windows and deliberately matmul-
-shaped for the MXU. `build_reduced_system` is factored out so the distributed
-path (parallel/dist_ba.py) can shard edges+landmarks over a device mesh and
-psum exactly (S, rhs, chi2) over ICI.
+37 MB f32) — well within device memory for local BA windows and deliberately
+matmul-shaped. This flat engine is the plain reference the bucketed engine
+(optim/schur_bucketed.py) and the distributed path (parallel/dist_ba.py) are
+tested against.
 
 The LiDAR tight-coupling stage of local BA (g2oOptimizer.cc:978-1117) adds
 unary LiDAR edges on the newest keyframe after the visual solve; see
@@ -172,7 +172,7 @@ def reduce_and_solve(
     Hll_inv = inv3x3(Hll_d)
 
     WHinv = jnp.einsum("alk,lkm->alm", W, Hll_inv)  # (P6, L, 3)
-    S_corr = jnp.einsum("alm,blm->ab", WHinv, W)  # (P6, P6) — MXU matmul
+    S_corr = jnp.einsum("alm,blm->ab", WHinv, W)  # (P6, P6) matmul
     dpp = jnp.diagonal(Hpp, axis1=-2, axis2=-1)
     Hpp_d = Hpp + mu * dpp[..., None] * eye6 + 1e-8 * eye6
     S = _blockdiag(Hpp_d) - S_corr
@@ -323,12 +323,11 @@ def local_ba(
 # ----------------------------------------------------------------------
 # Matrix-free Schur + PCG — the whole-map scale path.
 #
-# The dense-W layout above is ideal for local windows (matmul-shaped for
-# the MXU) but costs P*6*L*3 floats; a full map (10^3 KFs x 10^5 landmarks)
+# The dense-W layout above is ideal for local windows (matmul-shaped) but
+# costs P*6*L*3 floats; a full map (10^3 KFs x 10^5 landmarks)
 # doesn't fit. Here the reduced camera system S = Hpp - W Hll^-1 W^T is
 # never materialized: its action on a vector is three edge-wise batched
-# (k x 6)/(k x 3) contractions + segment-sums — O(E) per matvec, exactly
-# the compute pattern TPUs stream fastest. Solved by block-Jacobi
+# (k x 6)/(k x 3) contractions + segment-sums — O(E) per matvec. Solved by block-Jacobi
 # preconditioned CG. This replaces g2o's sparse CHOLMOD factorization in
 # `GlobalBundleAdjustemnt` (g2oOptimizer.cc:80-385) with an
 # iteration-parallel method that also distributes trivially (one psum of

@@ -1,4 +1,4 @@
-"""Landmark-bucketed Schur BA engine — the scatter-free fast path.
+"""Landmark-bucketed Schur BA engine — the production BA engine.
 
 Same algebra as optim/schur.py (damped LM + landmark Schur elimination,
 mirroring the reference's mybackend `Problem::SolveLinearSystem`,
@@ -7,21 +7,23 @@ observation edges laid out **bucketed by landmark**: obs arrays have shape
 (L, K) where K is the per-landmark observation capacity (the map store
 already stores observations this way, mapstore/store.py `lm_obs_kf`).
 
-Why: the flat-edge engine assembles the cross term W via a segment-sum
-scatter into P*L block slots — measured as the dominant per-iteration cost
-on TPU (PERF.md). In bucketed layout every landmark-local reduction
-(Hll, bl, back-substitution) is a plain sum over the K axis, and the dense
-cross factor is built with batched one-hot matmuls (MXU work) instead of
-scatters. The Schur reduction itself uses the square-root form
+Inside the engine every per-slot quantity is a (K, L) row with landmarks on
+the last axis (`ObsRows`): residuals and Jacobians are elementwise chains
+over whole (K, L) arrays, landmark-local reductions (Hll, bl,
+back-substitution) are sums over K, and pose-side reductions are
+`segment_sum`s over the slot's camera index. The Schur reduction uses the
+square-root form
 
-    Hll_d = Lc Lc^T          (batched closed-form 3x3 Cholesky)
+    Hll_d = Lc Lc^T          (closed-form 3x3 Cholesky per landmark)
     V     = U Lc^{-T}        (whitened cross blocks, U = Jp^T w Jl)
-    Y     = scatter-by-cam(V)            (P*6, L*3), via one-hot matmul
-    S     = Hpp_d - Y Y^T                (one symmetric MXU matmul)
+    Y     = V placed by camera            (P*6, L*3)
+    S     = Hpp_d - Y Y^T                 (banded by covisibility)
     rhs   = -(bp - Y (Lc^{-1} bl))
 
 — the per-edge square-root information factoring that gives the reference
-its "SqrtLM" name (edge.h:95-99), applied blockwise.
+its "SqrtLM" name (edge.h:95-99), applied blockwise. Local windows form S
+explicitly (`ba_iterate`); whole-map global BA applies it matrix-free inside
+PCG (`ba_iterate_cg`). PERF.md records the timings that chose this layout.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..factors import reprojection as reproj
 from ..geometry import se3
 from . import loss as losses
 
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class BucketedBAProblem(NamedTuple):
@@ -116,333 +119,187 @@ def from_flat(problem, K: int) -> BucketedBAProblem:
 
 
 # ----------------------------------------------------------------------
-# Closed-form batched 3x3 Cholesky machinery (the square-root factors).
+# Rows layout: per-slot quantities as (K, L) arrays, landmarks last.
 # ----------------------------------------------------------------------
 
 
-def chol3x3(M):
-    """Batched closed-form Cholesky of SPD (..., 3, 3): M = L L^T (lower)."""
-    eps = 1e-20
-    a11, a21, a31 = M[..., 0, 0], M[..., 1, 0], M[..., 2, 0]
-    a22, a32, a33 = M[..., 1, 1], M[..., 2, 1], M[..., 2, 2]
-    l11 = jnp.sqrt(jnp.maximum(a11, eps))
-    l21 = a21 / l11
-    l31 = a31 / l11
-    l22 = jnp.sqrt(jnp.maximum(a22 - l21 * l21, eps))
-    l32 = (a32 - l31 * l21) / l22
-    l33 = jnp.sqrt(jnp.maximum(a33 - l31 * l31 - l32 * l32, eps))
-    zero = jnp.zeros_like(l11)
-    return jnp.stack(
-        [
-            jnp.stack([l11, zero, zero], axis=-1),
-            jnp.stack([l21, l22, zero], axis=-1),
-            jnp.stack([l31, l32, l33], axis=-1),
-        ],
-        axis=-2,
+class ObsRows(NamedTuple):
+    """Observation buffers in rows layout. They are constant over an LM loop
+    (the observation graph, weights and pose mask do not change), so loops
+    prepare them once."""
+
+    uvr: jnp.ndarray  # (3, K, L) [u, v, u_right]
+    w: jnp.ndarray  # (K, L) inv_sigma2 * active
+    stereo: jnp.ndarray  # (K, L) 1.0 where the slot has a right-image u
+    free: jnp.ndarray  # (K, L) 1.0 where the observing pose is free
+    cam: jnp.ndarray  # (K, L) int32 pose index
+
+
+def prepare_obs(problem: BucketedBAProblem, active) -> ObsRows:
+    dtype = problem.points.dtype
+    return ObsRows(
+        uvr=problem.obs_uvr.transpose(2, 1, 0),
+        w=(problem.obs_inv_sigma2 * active.astype(dtype)).T,
+        stereo=(problem.obs_uvr[..., 2] >= 0.0).T.astype(dtype),
+        free=(~problem.pose_fixed)[problem.obs_cam].T.astype(dtype),
+        cam=problem.obs_cam.T,
     )
 
 
-def trinv_lower3x3(Lc):
-    """Batched closed-form inverse of lower-triangular (..., 3, 3)."""
-    l11, l21, l31 = Lc[..., 0, 0], Lc[..., 1, 0], Lc[..., 2, 0]
-    l22, l32, l33 = Lc[..., 1, 1], Lc[..., 2, 1], Lc[..., 2, 2]
-    m11 = 1.0 / l11
-    m22 = 1.0 / l22
-    m33 = 1.0 / l33
-    m21 = -l21 * m11 * m22
-    m31 = (l21 * l32 - l31 * l22) * m11 * m22 * m33
-    m32 = -l32 * m22 * m33
-    zero = jnp.zeros_like(m11)
-    return jnp.stack(
-        [
-            jnp.stack([m11, zero, zero], axis=-1),
-            jnp.stack([m21, m22, zero], axis=-1),
-            jnp.stack([m31, m32, m33], axis=-1),
-        ],
-        axis=-2,
+def _pose_gather(v: jnp.ndarray, cam_t: jnp.ndarray) -> jnp.ndarray:
+    """v (P, D) -> (D, K, L): each slot's row of its observing pose."""
+    return jnp.take(v.T, cam_t, axis=1)
+
+
+def _pose_sum(X: jnp.ndarray, cam_t: jnp.ndarray, P: int) -> jnp.ndarray:
+    """Sum slot values X (D, K, L) into their pose rows -> (P, D)."""
+    D = X.shape[0]
+    return jax.ops.segment_sum(
+        X.reshape(D, -1).T, cam_t.reshape(-1), num_segments=P
     )
 
 
-# ----------------------------------------------------------------------
-# Edge terms in (L, K) layout — no scatter anywhere.
-# ----------------------------------------------------------------------
+def _project(problem: BucketedBAProblem, obs: ObsRows, cam: reproj.Camera):
+    """Gathered poses g (12, K, L) — rows 0-8 R row-major, 9-11 t — the
+    camera-frame point rows x_c, 1/z, and the stereo residual rows
+    (factors/reprojection.py::stereo_residual_jac; mono slots zero the
+    u_right row)."""
+    P = problem.num_poses
+    pose12 = jnp.concatenate(
+        [problem.pose_R.reshape(P, 9), problem.pose_t], axis=1
+    )
+    g = _pose_gather(pose12, obs.cam)
+    X = problem.points.T[:, None, :]  # (3, 1, L) broadcasts over K
+    xc = [
+        g[3 * i] * X[0] + g[3 * i + 1] * X[1] + g[3 * i + 2] * X[2] + g[9 + i]
+        for i in range(3)
+    ]
+    iz = 1.0 / jnp.maximum(xc[2], reproj._ZEPS)
+    u = cam.fx * xc[0] * iz + cam.cx
+    v = cam.fy * xc[1] * iz + cam.cy
+    r = [
+        u - obs.uvr[0],
+        v - obs.uvr[1],
+        (u - cam.bf * iz - obs.uvr[2]) * obs.stereo,
+    ]
+    return g, xc, iz, r
 
 
-def _edge_terms(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_delta):
-    """Per-slot (r, Jp, Jl, w, chi2) with mono/stereo unified (L, K, ...)."""
-    T = se3.SE3(problem.pose_R[problem.obs_cam], problem.pose_t[problem.obs_cam])
-    X = problem.points[:, None, :]  # (L, 1, 3) broadcasts over K
-    uvr = problem.obs_uvr
-    is_stereo = uvr[..., 2] >= 0.0
-
-    r, Jp, Jl = reproj.stereo_residual_jac(T, X, uvr, cam)
-    row_mask = jnp.stack(
-        [jnp.ones_like(is_stereo), jnp.ones_like(is_stereo), is_stereo],
-        axis=-1,
-    ).astype(r.dtype)
-    r = r * row_mask
-    Jp = Jp * row_mask[..., None]
-    Jl = Jl * row_mask[..., None]
-
-    w_info = problem.obs_inv_sigma2 * active.astype(r.dtype)
-    e2 = w_info * jnp.sum(r * r, axis=-1)
+def _robust(obs: ObsRows, r, robust_delta):
+    """Info-weighted squared error e2, robust cost rho (zero on inactive
+    slots) and IRLS weight w (optim/loss.py Huber)."""
+    e2 = obs.w * (r[0] * r[0] + r[1] * r[1] + r[2] * r[2])
     if robust_delta is None:
-        w_rob = jnp.ones_like(e2)
-        rho = e2
+        rho, w = e2, obs.w
     else:
         rho, w_rob, _ = losses.huber(robust_delta)(e2)
-    w = w_info * w_rob
-    chi2 = jnp.sum(jnp.where(active, rho, 0.0))
-    return r, Jp, Jl, w, chi2, e2
+        w = obs.w * w_rob
+    return e2, jnp.where(obs.w > 0, rho, 0.0), w
+
+
+def _chi2(problem: BucketedBAProblem, obs: ObsRows, cam, robust_delta):
+    _, _, _, r = _project(problem, obs, cam)
+    return jnp.sum(_robust(obs, r, robust_delta)[1])
 
 
 def chi2_only(problem: BucketedBAProblem, cam, active, robust_delta):
-    if _pallas_assembly_ok(problem, cam, robust_delta):
-        from . import assembly_pallas
-
-        w_active = problem.obs_inv_sigma2 * active.astype(jnp.float32)
-        return assembly_pallas.chi2_sum(
-            problem.pose_R,
-            problem.pose_t,
-            problem.points,
-            problem.obs_cam,
-            problem.obs_uvr,
-            w_active,
-            fx=float(cam.fx),
-            fy=float(cam.fy),
-            cx=float(cam.cx),
-            cy=float(cam.cy),
-            bf=float(cam.bf),
-            robust_delta=robust_delta,
-        )
-    return _edge_terms(problem, cam, active, robust_delta)[4]
+    """Robust chi2 over the active slots."""
+    return _chi2(problem, prepare_obs(problem, active), cam, robust_delta)
 
 
 def edge_chi2_and_depth(problem: BucketedBAProblem, cam: reproj.Camera):
-    """Per-slot chi2 (info-weighted) and camera-frame depth, for gating."""
-    _, _, _, _, _, e2 = _edge_terms(problem, cam, problem.obs_valid, None)
-    T = se3.SE3(problem.pose_R[problem.obs_cam], problem.pose_t[problem.obs_cam])
-    z = se3.act(T, problem.points[:, None, :])[..., 2]
-    return e2, z
+    """Per-slot chi2 (info-weighted) and camera-frame depth (L, K), for
+    gating."""
+    obs = prepare_obs(problem, problem.obs_valid)
+    _, xc, _, r = _project(problem, obs, cam)
+    e2 = _robust(obs, r, None)[0]
+    return e2.T, xc[2].T
 
 
-# ----------------------------------------------------------------------
-# One damped step: build S, solve, back-substitute.
-# ----------------------------------------------------------------------
+class Reductions(NamedTuple):
+    """Mu-independent reductions at one linearization point: everything the
+    damped step needs that does NOT depend on the LM damping mu, so LM loops
+    carry it across iterations and re-damp cheaply on rejection."""
 
-
-def _build_Y(V, obs_cam, P):
-    """Scatter per-slot 6x3 blocks V (L, K, 6, 3) by camera -> (P, L, 6, 3).
-
-    Implemented as batched one-hot matmuls (MXU) rather than a TPU scatter.
-    Measured (benchmarks/breakdown2/4): the one-hot einsum is ~free; what
-    matters is NOT reshaping to an explicit (P*6, L*3) matrix — letting XLA
-    pick the contraction layout for S saves ~40% of the step.
-    """
-    O = jax.nn.one_hot(obs_cam, P, dtype=V.dtype)  # (L, K, P)
-    return jnp.einsum("lkp,lkim->plim", O, V)  # (P, L, 6, 3)
-
-
-class LocalPieces(NamedTuple):
-    """Per-shard contributions to the reduced camera system + backsub ctx.
-
-    All of (S_half, Hpp_d, bp, rhs_corr, chi2) sum exactly across landmark
-    shards — the distributed path (parallel/dist_ba.py) psums them over ICI
-    and gets algebra identical to the single-device engine.
-    """
-
-    S_half: jnp.ndarray  # (P*6, P*6) = -Y Y^T + blockdiag(Hpp_d)
-    bp: jnp.ndarray  # (P, 6)
-    rhs_corr: jnp.ndarray  # (P*6,) = Y (Lc^{-1} bl)
-    chi2: jnp.ndarray  # ()
-    U: jnp.ndarray  # (L, K, 6, 3) backsub context (shard-local)
-    Minv: jnp.ndarray  # (L, 3, 3)
-    bl: jnp.ndarray  # (L, 3)
-
-
-def _pallas_assembly_ok(problem: BucketedBAProblem, cam, robust_delta=None) -> bool:
-    """Kernel path preconditions: TPU backend, lane-aligned L, static cam
-    and a static (hashable) robust_delta — the kernel jits with all of these
-    in static_argnames, so a traced value must fall back to the XLA path."""
-    if jax.default_backend() != "tpu":
-        return False
-    if problem.num_points % 128 != 0:
-        return False
-    try:
-        float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(cam.bf)
-        if robust_delta is not None:
-            float(robust_delta)
-            hash(robust_delta)
-    except Exception:
-        return False
-    return True
-
-
-def build_local_pieces(
-    problem: BucketedBAProblem, cam, active, robust_delta, mu
-) -> LocalPieces:
-    """Everything up to (but excluding) the global pose solve.
-
-    On TPU the edge terms + reductions run as ONE Pallas kernel
-    (optim/assembly_pallas.py, landmarks-on-lanes layout — measured 12x the
-    XLA chain, breakdown7); elsewhere the XLA einsum path below."""
-    if _pallas_assembly_ok(problem, cam, robust_delta):
-        from . import assembly_pallas
-
-        w_active = problem.obs_inv_sigma2 * active.astype(jnp.float32)
-        out = assembly_pallas.assemble(
-            problem.pose_R,
-            problem.pose_t,
-            ~problem.pose_fixed,
-            problem.points,
-            problem.obs_cam,
-            problem.obs_uvr,
-            w_active,
-            fx=float(cam.fx),
-            fy=float(cam.fy),
-            cx=float(cam.cx),
-            cy=float(cam.cy),
-            bf=float(cam.bf),
-            robust_delta=robust_delta,
-        )
-        return _pieces_tail(
-            problem, out.Hll, out.bl, out.U, out.Hpp, out.bp, out.chi2, mu
-        )
-    terms = _edge_terms(problem, cam, active, robust_delta)
-    return pieces_from_terms(problem, terms[:5], mu)
-
-
-def reductions_from_terms(problem: BucketedBAProblem, terms):
-    """Mu-independent reductions (Hll, bl, U, Hpp, bp, chi2) from edge terms.
-
-    This is the XLA equivalent of the Pallas assembly kernel's output
-    (optim/assembly_pallas.py::AssemblyOut) — everything the damped step
-    needs that does NOT depend on the LM damping mu, so LM loops can carry
-    it across iterations and re-damp cheaply on rejection."""
-    P, L = problem.num_poses, problem.num_points
-    K = problem.obs_cam.shape[1]
-    r, Jp, Jl, w, chi2 = terms
-    dtype = r.dtype
-
-    free_pose = (~problem.pose_fixed)[problem.obs_cam]
-    Jp = Jp * free_pose[..., None, None].astype(dtype)
-
-    # Landmark-local reductions: plain sums over the K axis.
-    Hll = jnp.einsum("lkri,lk,lkrj->lij", Jl, w, Jl)  # (L, 3, 3)
-    bl = jnp.einsum("lkri,lk,lkr->li", Jl, w, r)  # (L, 3)
-    U = jnp.einsum("lkri,lk,lkrj->lkij", Jp, w, Jl)  # (L, K, 6, 3)
-
-    # Pose-block reductions as one-hot matmuls: TPU scatter (segment_sum)
-    # serializes; a (P, E) x (E, 36) MXU matmul is ~30x faster (measured,
-    # benchmarks/breakdown2.py).
-    O = jax.nn.one_hot(problem.obs_cam, P, dtype=dtype)  # (L, K, P)
-    Of = O.reshape(L * K, P)
-    Hpp = jnp.einsum(
-        "ep,ed->pd",
-        Of,
-        jnp.einsum("lkri,lk,lkrj->lkij", Jp, w, Jp).reshape(L * K, 36),
-    ).reshape(P, 6, 6)
-    bp = jnp.einsum(
-        "ep,ei->pi",
-        Of,
-        jnp.einsum("lkri,lk,lkr->lki", Jp, w, r).reshape(L * K, 6),
-    )
-    return Hll, bl, U, Hpp, bp, chi2
-
-
-def pieces_from_terms(
-    problem: BucketedBAProblem, terms, mu, y_bf16: Optional[bool] = None
-) -> LocalPieces:
-    """Assemble the reduced system from precomputed edge terms (XLA path)."""
-    Hll, bl, U, Hpp, bp, chi2 = reductions_from_terms(problem, terms)
-    return _pieces_tail(problem, Hll, bl, U, Hpp, bp, chi2, mu, y_bf16)
-
-
-def _pieces_tail(
-    problem: BucketedBAProblem, Hll, bl, U, Hpp, bp, chi2, mu,
-    y_bf16: Optional[bool] = None,
-) -> LocalPieces:
-    """Damping + sqrt-Schur factors from the assembled reductions."""
-    P, L = problem.num_poses, problem.num_points
-    dtype = bl.dtype
-    eye3 = jnp.eye(3, dtype=dtype)
-    eye6 = jnp.eye(6, dtype=dtype)
-    O = jax.nn.one_hot(problem.obs_cam, P, dtype=dtype)  # (L, K, P)
-
-    # Damp (Marquardt multiplicative, matching problem.cc:632-676) + sqrt form.
-    dll = jnp.diagonal(Hll, axis1=-2, axis2=-1)
-    Hll_d = Hll + mu * dll[..., None] * eye3 + 1e-8 * eye3
-    Hll_d = jnp.where(problem.point_valid[:, None, None], Hll_d, eye3)
-    Lc = chol3x3(Hll_d)
-    Minv = trinv_lower3x3(Lc)  # Lc^{-1}; Hll_d^{-1} = Minv^T Minv
-
-    # Whitened cross blocks V = U Lc^{-T}: V[i,j] = sum_m U[i,m] Minv[j,m].
-    # On TPU, Y is stored bf16: the S product runs at Precision.DEFAULT
-    # (bf16 MXU inputs) anyway, so rounding Y at rest is bit-identical for S
-    # while halving the dominant HBM read (breakdown6: 0.82 -> 0.72 ms).
-    # On CPU there is no MXU truncation, so keep f32 (tests compare the
-    # bucketed step against the flat engine at tight tolerance there).
-    # When y_bf16 is None the choice keys off jax.default_backend() at TRACE
-    # time — callers jitting for a device that is not the default backend
-    # (e.g. an explicit device_put to CPU on a TPU host) must pass y_bf16
-    # explicitly to avoid bf16 Y without the MXU truncation that makes it
-    # free on TPU.
-    if y_bf16 is None:
-        y_bf16 = jax.default_backend() == "tpu"
-    y_dtype = jnp.bfloat16 if y_bf16 else dtype
-    V = jnp.einsum("lkim,ljm->lkij", U, Minv).astype(y_dtype)
-    Y = _build_Y(V, problem.obs_cam, P)  # (P, L, 6, 3)
-
-    # Damping of Hpp is linear in Hpp's diagonal, so damping per-shard and
-    # psum-ing matches damping the psum (the 1e-8 absolute epsilon is scaled
-    # by shard count there — harmless).
-    dpp = jnp.diagonal(Hpp, axis1=-2, axis2=-1)
-    Hpp_d = Hpp + mu * dpp[..., None] * eye6 + 1e-8 * eye6
-    # DEFAULT precision = one MXU pass (bf16 inputs, f32 accumulate) vs the
-    # 6-pass f32 emulation of HIGHEST — ~0.6 ms/iter at P=96,L=8192
-    # (benchmarks/breakdown5.py). The ~0.4% relative error on S is absorbed
-    # by the chi2-gated LM loop; measured final chi2 is unchanged.
-    S_half = -jnp.einsum(
-        "alim,bljm->aibj", Y, Y, preferred_element_type=jnp.float32
-    ).reshape(P * 6, P * 6)
-    # Add the block-diagonal Hpp_d without a scatter (einsum with eye fuses).
-    S_half = S_half + jnp.einsum(
-        "pij,pq->piqj", Hpp_d, jnp.eye(P, dtype=dtype)
-    ).reshape(P * 6, P * 6)
-
-    # rhs_corr = Y (Lc^{-1} bl), computed from the small f32 U tensor instead
-    # of the big bf16 Y (full f32 accuracy, ~20x less HBM read):
-    # V z = U (Minv^T (Minv bl)) slot-wise, then one one-hot pose reduction.
-    z = jnp.einsum("lij,lj->li", Minv, bl)  # Lc^{-1} bl, (L, 3)
-    y2 = jnp.einsum("lmi,lm->li", Minv, z)  # Hll_d^{-1} bl
-    Vz = jnp.einsum("lkim,lm->lki", U, y2)  # (L, K, 6)
-    rhs_corr = jnp.einsum(
-        "lkp,lki->pi", O, Vz, precision=jax.lax.Precision.HIGHEST
-    ).reshape(-1)
-    return LocalPieces(
-        S_half=S_half, bp=bp, rhs_corr=rhs_corr, chi2=chi2, U=U, Minv=Minv, bl=bl
-    )
-
-
-class RowsPieces(NamedTuple):
-    """Sqrt-Schur tail products in kernel-native rows layout (see
-    assembly_pallas.AssemblyRows): the (L, K, 6, 3)/(L, 3, 3) tensors of
-    LocalPieces pad their trailing dims to 128 lanes in every elementwise
-    op; keeping landmarks on lanes avoids that tax end to end."""
-
-    S_half: jnp.ndarray  # (P*6, P*6)
-    bp: jnp.ndarray  # (P, 6)
-    rhs_corr: jnp.ndarray  # (P*6,)
-    chi2: jnp.ndarray  # ()
-    u18: jnp.ndarray  # (18, K, L)
-    minv6: jnp.ndarray  # (6, L): m11, m21, m22, m31, m32, m33 of Lc^{-1}
+    hll9: jnp.ndarray  # (9, L) rows of Hll (row-major 3x3)
     bl3: jnp.ndarray  # (3, L)
+    u18: jnp.ndarray  # (18, K, L) rows of U = Jp^T w Jl: index 3*i+j = U[i, j]
+    Hpp: jnp.ndarray  # (P, 6, 6)
+    bp: jnp.ndarray  # (P, 6)
+    chi2: jnp.ndarray  # ()
 
 
-def _damped_minv_rows(h9, point_valid, mu):
-    """Damped-Hll closed-form Cholesky + lower-triangular inverse in rows
-    layout: (9, L) Hll rows -> (6, L) [m11, m21, m22, m31, m32, m33] of
-    Lc^{-1} (Hll_d^{-1} = Minv^T Minv). All elementwise on lanes."""
+def assemble(
+    problem: BucketedBAProblem, obs: ObsRows, cam: reproj.Camera, robust_delta
+) -> Reductions:
+    """Residuals, analytic Jacobians, Huber weights and all reductions in one
+    elementwise pass (the reference's `MakeHessian`, problem.cc:429-563).
+    Fixed poses get no pose Jacobian (g2o setFixed, g2oOptimizer.cc:760)."""
+    P = problem.num_poses
+    g, xc, iz, r = _project(problem, obs, cam)
+    iz2 = iz * iz
+    st = obs.stereo
+    zero = jnp.zeros_like(iz)
+    # d(u, v, u_right)/d x_c; the stereo row is masked by st.
+    d = [
+        [cam.fx * iz, zero, -cam.fx * xc[0] * iz2],
+        [zero, cam.fy * iz, -cam.fy * xc[1] * iz2],
+        [cam.fx * iz * st, zero, (-cam.fx * xc[0] * iz2 + cam.bf * iz2) * st],
+    ]
+    # Jp = d @ [I | -hat(x_c)] (left-multiplicative update), Jl = d @ R.
+    Jp = [
+        [
+            d[a][0] * obs.free,
+            d[a][1] * obs.free,
+            d[a][2] * obs.free,
+            (-d[a][1] * xc[2] + d[a][2] * xc[1]) * obs.free,
+            (d[a][0] * xc[2] - d[a][2] * xc[0]) * obs.free,
+            (-d[a][0] * xc[1] + d[a][1] * xc[0]) * obs.free,
+        ]
+        for a in range(3)
+    ]
+    Jl = [
+        [sum(d[a][m] * g[3 * m + j] for m in range(3)) for j in range(3)]
+        for a in range(3)
+    ]
+    _, rho, w = _robust(obs, r, robust_delta)
+
+    def jtwj(A, i, B, j):
+        return sum(A[a][i] * w * B[a][j] for a in range(3))
+
+    def jtwr(A, i):
+        return sum(A[a][i] * w * r[a] for a in range(3))
+
+    hll9 = jnp.stack(
+        [jnp.sum(jtwj(Jl, i, Jl, j), axis=0) for i in range(3) for j in range(3)]
+    )
+    bl3 = jnp.stack([jnp.sum(jtwr(Jl, i), axis=0) for i in range(3)])
+    u18 = jnp.stack([jtwj(Jp, i, Jl, j) for i in range(6) for j in range(3)])
+    hb = jnp.stack(
+        [jtwj(Jp, i, Jp, j) for i in range(6) for j in range(6)]
+        + [jtwr(Jp, i) for i in range(6)]
+    )  # (42, K, L)
+    pose_rows = _pose_sum(hb, obs.cam, P)
+    return Reductions(
+        hll9=hll9,
+        bl3=bl3,
+        u18=u18,
+        Hpp=pose_rows[:, :36].reshape(P, 6, 6),
+        bp=pose_rows[:, 36:],
+        chi2=jnp.sum(rho),
+    )
+
+
+# ----------------------------------------------------------------------
+# Sqrt-Schur pieces, per landmark (rows layout).
+# ----------------------------------------------------------------------
+
+
+def _damped_minv(h9, point_valid, mu):
+    """Damped-Hll closed-form Cholesky + lower-triangular inverse:
+    (9, L) Hll rows -> (6, L) [m11, m21, m22, m31, m32, m33] of Lc^{-1}
+    (Hll_d^{-1} = Minv^T Minv). Marquardt damping, problem.cc:632-676;
+    invalid landmarks get identity blocks."""
     pv = point_valid
     eps = 1e-20
     a11 = jnp.where(pv, h9[0] * (1.0 + mu) + 1e-8, 1.0)
@@ -466,8 +323,8 @@ def _damped_minv_rows(h9, point_valid, mu):
     return jnp.stack([m11, m21, m22, m31, m32, m33])
 
 
-def _hinv_rows(minv6, b3):
-    """Hll_d^{-1} b in rows layout: Minv^T (Minv b), b (3, L) -> (3, L)."""
+def _hinv(minv6, b3):
+    """Hll_d^{-1} b = Minv^T (Minv b) for b (3, L) -> (3, L)."""
     m11, m21, m22, m31, m32, m33 = minv6
     z0 = m11 * b3[0]
     z1 = m21 * b3[0] + m22 * b3[1]
@@ -477,41 +334,81 @@ def _hinv_rows(minv6, b3):
     )
 
 
+def _u_times(u18, y3):
+    """Per slot U y: (18, K, L) x (3, L) -> (6, K, L)."""
+    return jnp.stack(
+        [sum(u18[3 * i + m] * y3[m] for m in range(3)) for i in range(6)]
+    )
+
+
+def _ut_times(u18, v6):
+    """Sum over slots of U^T v: (18, K, L) x (6, K, L) -> (3, L)."""
+    return jnp.stack(
+        [
+            sum(jnp.sum(u18[3 * i + j] * v6[i], axis=0) for i in range(6))
+            for j in range(3)
+        ]
+    )
+
+
+def _whiten(u18, minv6):
+    """V = U Lc^{-T} per slot: V[i, j] = sum_m U[i, m] Minv[j, m]."""
+    m11, m21, m22, m31, m32, m33 = minv6
+
+    def U(i, m):
+        return u18[3 * i + m]
+
+    return jnp.stack(
+        [
+            row
+            for i in range(6)
+            for row in (
+                U(i, 0) * m11,
+                U(i, 0) * m21 + U(i, 1) * m22,
+                U(i, 0) * m31 + U(i, 1) * m32 + U(i, 2) * m33,
+            )
+        ]
+    )  # (18, K, L)
+
+
+def _gram(V18, cam_t, P: int):
+    """Y Y^T for the slots of V18 (18, K, L): Y[x, p, l] = sum_k
+    [cam[k, l] == p] V18[x, k, l]. The placement is an exact 0/1
+    selection, hence HIGHEST precision."""
+    O = jax.nn.one_hot(cam_t, P, axis=1, dtype=V18.dtype)  # (K, P, L)
+    Y6 = jnp.einsum("kpl,xkl->xpl", O, V18, precision=HIGHEST).reshape(
+        6, 3, P, -1
+    )
+    return jnp.einsum("imal,jmbl->aibj", Y6, Y6).reshape(P * 6, P * 6)
+
+
 class ChunkPlan(NamedTuple):
     """Loop-constant layout for the banded (chunked) S-Gram product.
 
     The dense reduced-system product S_corr = Y Y^T contracts over ALL
-    landmarks for EVERY pose pair — 1.6e10 flops at the bench shape — yet
+    landmarks for EVERY pose pair — 1.6e10 flops at P=96, L=8192 — yet
     covisibility makes Y block-banded: a landmark's observations touch a
     handful of nearby keyframes (SURVEY §5.7, the locality the reference's
     sparse CHOLMOD exploits implicitly). Chunking landmarks by index (map
     stores create them in keyframe order, so index ≈ pose locality) and
     forming each chunk's Gram over a small local pose WINDOW cuts the
-    product to C·(6W)²·3Lc flops (~36x at the bench shape). Landmarks whose
+    product to C·(6W)²·3Lc flops (~36x fewer at that shape). Landmarks whose
     observations escape their chunk's window (loop closures) fall back to
     the exact dense product, gated by lax.cond so the common all-covered
     case never pays for it.
 
     Built once per LM loop from the (loop-constant) observation graph."""
 
-    Ol: jnp.ndarray  # (K, C, W, Lc) local one-hot (bf16 on TPU)
+    Ol: jnp.ndarray  # (K, C, W, Lc) local one-hot
     wc: jnp.ndarray  # (C,) int32 window start pose of each chunk
     E6: jnp.ndarray  # (C, P*6, W*6) block-placement one-hot kron(Ec, I6)
     cov: jnp.ndarray  # (L,) bool — landmark fully inside its chunk window
     n_uncovered: jnp.ndarray  # () int32
 
-    @property
-    def W(self):
-        return self.Ol.shape[2]
-
-    @property
-    def Lc(self):
-        return self.Ol.shape[3]
-
 
 def plan_chunks(
     cam_t: jnp.ndarray, wvalid: jnp.ndarray, P: int,
-    Lc: int = 256, W: int = 16, y_bf16: Optional[bool] = None,
+    Lc: int = 256, W: int = 16,
 ) -> Optional[ChunkPlan]:
     """Build the chunked-Gram layout from the (K, L) camera assignment.
 
@@ -530,26 +427,18 @@ def plan_chunks(
     rel = camc - wc[None, :, None]
     inwin = (rel >= 0) & (rel < W)
     cov = jnp.all(inwin | ~act, axis=0).reshape(L)  # (L,)
-    if y_bf16 is None:
-        y_bf16 = jax.default_backend() == "tpu"
-    o_dtype = jnp.bfloat16 if y_bf16 else jnp.float32
     relc = jnp.clip(rel, 0, W - 1)
     # one_hot appends the class axis last -> (K, C, Lc, W); move W before Lc
-    # so landmarks stay on lanes. Loop-constant: the transpose happens once.
+    # so landmarks stay on the last axis. Loop-constant.
     Ol = jnp.moveaxis(
-        jax.nn.one_hot(relc, W, dtype=o_dtype), -1, 2
-    ) * act[:, :, None, :].astype(o_dtype)
+        jax.nn.one_hot(relc, W, dtype=jnp.float32), -1, 2
+    ) * act[:, :, None, :].astype(jnp.float32)
     # Block placement at 6-dof granularity: E6[c, 6p+i, 6w+j] = (p == wc+w)
-    # * (i == j) — i.e. kron(Ec, I6). Loop-constant; lets the chunk Grams be
-    # placed with two clean batched MXU matmuls (no trailing-6 lane padding,
-    # no sequential per-chunk scatter).
+    # * (i == j) — i.e. kron(Ec, I6). Loop-constant; places the chunk Grams
+    # with two batched matmuls instead of a sequential per-chunk scatter.
     Ec = jnp.swapaxes(
         jax.nn.one_hot(wc[:, None] + jnp.arange(W)[None, :], P), 1, 2
     )  # (C, P, W)
-    # E6 stays f32: entries are 0/1 (exact) and the placement einsums run
-    # at HIGHEST precision so the f32-accumulated chunk Grams are placed
-    # without bf16 rounding (the dense path only rounds per-landmark
-    # products; placement must not add a second rounding).
     E6 = jnp.einsum("cpw,ij->cpiwj", Ec, jnp.eye(6)).reshape(
         C, P * 6, W * 6
     )
@@ -557,148 +446,96 @@ def plan_chunks(
     return ChunkPlan(Ol=Ol, wc=wc, E6=E6, cov=cov, n_uncovered=n_unc)
 
 
-def _chunked_S_corr(V18, plan: ChunkPlan, O, P: int):
-    """S_corr = Y Y^T via per-chunk local-window Grams + block scatter.
+def _chunked_S_corr(V18, plan: ChunkPlan, cam_t, P: int):
+    """S_corr = Y Y^T via per-chunk local-window Grams + block placement.
 
     Exact: covered landmarks contribute through their chunk's (6W, 6W)
     Gram placed at the window's block offset; uncovered landmarks (if any)
-    contribute through the original dense product, executed only when
-    n_uncovered > 0 (lax.cond)."""
+    contribute through the dense product, executed only when
+    n_uncovered > 0 (lax.cond). Every 0/1 selection runs at HIGHEST."""
     K, C, W, Lc = plan.Ol.shape
     covm = plan.cov.astype(V18.dtype)
     V18c = (V18 * covm).reshape(18, K, C, Lc)
-    Yc = jnp.einsum("kcwl,xkcl->xcwl", plan.Ol, V18c)  # (18, C, W, Lc)
+    Yc = jnp.einsum(
+        "kcwl,xkcl->xcwl", plan.Ol, V18c, precision=HIGHEST
+    )  # (18, C, W, Lc)
     Y6c = Yc.reshape(6, 3, C, W, Lc)
-    Sc = jnp.einsum(
-        "imcal,jmcbl->caibj", Y6c, Y6c, preferred_element_type=jnp.float32
-    ).reshape(C, W * 6, W * 6)
-
-    # Batched block placement (NO sequential per-chunk scan — 32 chained
-    # dynamic_update_slices were latency-bound at ~0.2 ms): two batched
-    # MXU matmuls against the kron(Ec, I6) placement one-hot, at HIGHEST
-    # precision so the 0/1 selection is exact and the f32-accumulated Sc
-    # entries are not bf16-rounded on the MXU (the tiny (P6,W6)x(W6,W6)
-    # shapes make the 3x pass cost negligible).
-    T1 = jnp.einsum(
-        "cra,cab->crb", plan.E6, Sc,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    S_corr = jnp.einsum(
-        "crb,csb->rs", T1, plan.E6,
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32,
-    )
+    Sc = jnp.einsum("imcal,jmcbl->caibj", Y6c, Y6c).reshape(C, W * 6, W * 6)
+    T1 = jnp.einsum("cra,cab->crb", plan.E6, Sc, precision=HIGHEST)
+    S_corr = jnp.einsum("crb,csb->rs", T1, plan.E6, precision=HIGHEST)
 
     def add_uncovered(S):
-        Vu = V18 * (~plan.cov).astype(V18.dtype)
-        Yp = jnp.einsum("kpl,xkl->xpl", O.astype(V18.dtype), Vu)
-        Y6 = Yp.reshape(6, 3, P, -1)
-        return S + jnp.einsum(
-            "imal,jmbl->aibj", Y6, Y6, preferred_element_type=jnp.float32
-        ).reshape(P * 6, P * 6)
+        return S + _gram(V18 * (~plan.cov).astype(V18.dtype), cam_t, P)
 
     return jax.lax.cond(
         plan.n_uncovered > 0, add_uncovered, lambda S: S, S_corr
     )
 
 
-def _pieces_tail_rows(problem, rows, mu, O, plan: Optional[ChunkPlan] = None) -> RowsPieces:
-    """_pieces_tail in rows layout (Pallas-path fast tail).
+class LocalPieces(NamedTuple):
+    """Per-shard contributions to the reduced camera system + backsub ctx.
 
-    `rows` is assembly_pallas.AssemblyRows; `O` is the loop-constant
-    one-hot camera assignment in (K, P, L) layout. Algebra identical to
-    _pieces_tail (same bf16-Y S product, same f32 rhs_corr)."""
-    P, L = problem.num_poses, problem.num_points
-    dtype = rows.bl3.dtype
-    minv6 = _damped_minv_rows(rows.hll9, problem.point_valid, mu)
-    m11, m21, m22, m31, m32, m33 = minv6
+    All of (S_half, bp, rhs_corr, chi2) sum exactly across landmark
+    shards — the distributed path (parallel/dist_ba.py) psums them and
+    gets algebra identical to the single-device engine."""
 
-    # V = U Lc^{-T} rows: V[i, j] = sum_m U[i, m] Minv[j, m].
-    u = rows.u18
+    S_half: jnp.ndarray  # (P*6, P*6) = blockdiag(Hpp_d) - Y Y^T
+    bp: jnp.ndarray  # (P, 6)
+    rhs_corr: jnp.ndarray  # (P*6,) = Y (Lc^{-1} bl)
+    chi2: jnp.ndarray  # ()
+    u18: jnp.ndarray  # (18, K, L) backsub context (shard-local)
+    minv6: jnp.ndarray  # (6, L)
+    bl3: jnp.ndarray  # (3, L)
 
-    def U_(i, m):
-        return u[3 * i + m]
 
-    y_bf16 = jax.default_backend() == "tpu"
-    y_dtype = jnp.bfloat16 if y_bf16 else dtype
-    V18 = jnp.stack(
-        [
-            row
-            for i in range(6)
-            for row in (
-                U_(i, 0) * m11,
-                U_(i, 0) * m21 + U_(i, 1) * m22,
-                U_(i, 0) * m31 + U_(i, 1) * m32 + U_(i, 2) * m33,
-            )
-        ]
-    ).astype(y_dtype)  # (18, K, L)
+def _damp_hpp(Hpp, mu):
+    eye6 = jnp.eye(6, dtype=Hpp.dtype)
+    dpp = jnp.diagonal(Hpp, axis1=-2, axis2=-1)
+    return Hpp + (mu * dpp[..., None] + 1e-8) * eye6
 
+
+def _pieces_tail(
+    problem: BucketedBAProblem, red: Reductions, mu, cam_t,
+    plan: Optional[ChunkPlan] = None,
+) -> LocalPieces:
+    """Damping + sqrt-Schur factors from the assembled reductions.
+
+    Damping of Hpp is linear in Hpp's diagonal, so damping per shard and
+    psum-ing matches damping the psum (the 1e-8 absolute epsilon is scaled
+    by shard count there — harmless)."""
+    P = problem.num_poses
+    minv6 = _damped_minv(red.hll9, problem.point_valid, mu)
+    V18 = _whiten(red.u18, minv6)
     if plan is not None:
-        # Banded fast path: per-chunk local-window Grams (see ChunkPlan).
-        S_half = -_chunked_S_corr(V18, plan, O, P)
+        S_corr = _chunked_S_corr(V18, plan, cam_t, P)
     else:
-        # Pose-scatter WITHOUT the (P, L, 6, 3) dense intermediate of
-        # _build_Y: Y'[x, p, l] = sum_k O[k, p, l] V18[x, k, l], then Gram.
-        Yp = jnp.einsum("kpl,xkl->xpl", O.astype(y_dtype), V18)
-        Y6 = Yp.reshape(6, 3, P, L)
-        S_half = -jnp.einsum(
-            "imal,jmbl->aibj", Y6, Y6, preferred_element_type=jnp.float32
-        ).reshape(P * 6, P * 6)
-    dpp = jnp.diagonal(rows.Hpp, axis1=-2, axis2=-1)
-    Hpp_d = rows.Hpp + (mu * dpp[..., None] + 1e-8) * jnp.eye(6, dtype=dtype)
-    S_half = S_half + jnp.einsum(
-        "pij,pq->piqj", Hpp_d, jnp.eye(P, dtype=dtype)
-    ).reshape(P * 6, P * 6)
-
-    # rhs_corr = Y (Hll_d^{-1} bl) from the small f32 rows (full accuracy).
-    b0, b1, b2 = rows.bl3
-    z0 = m11 * b0
-    z1 = m21 * b0 + m22 * b1
-    z2 = m31 * b0 + m32 * b1 + m33 * b2
-    y20 = m11 * z0 + m21 * z1 + m31 * z2
-    y21 = m22 * z1 + m32 * z2
-    y22 = m33 * z2
-    Vz = jnp.stack(
-        [U_(i, 0) * y20 + U_(i, 1) * y21 + U_(i, 2) * y22 for i in range(6)]
-    )  # (6, K, L)
-    rhs_corr = jnp.einsum(
-        "kpl,ikl->pi", O, Vz, precision=jax.lax.Precision.HIGHEST
-    ).reshape(-1)
-    return RowsPieces(
-        S_half=S_half, bp=rows.bp, rhs_corr=rhs_corr, chi2=rows.chi2,
-        u18=u, minv6=minv6, bl3=rows.bl3,
+        S_corr = _gram(V18, cam_t, P)
+    Hpp_d = _damp_hpp(red.Hpp, mu)
+    # Block-diagonal Hpp_d without a scatter (einsum with eye fuses).
+    S_half = jnp.einsum(
+        "pij,pq->piqj", Hpp_d, jnp.eye(P, dtype=Hpp_d.dtype)
+    ).reshape(P * 6, P * 6) - S_corr
+    # rhs_corr = Y (Lc^{-1} bl) = sum over slots of U Hll_d^{-1} bl.
+    y = _hinv(minv6, red.bl3)
+    rhs_corr = _pose_sum(_u_times(red.u18, y), cam_t, P).reshape(-1)
+    return LocalPieces(
+        S_half=S_half, bp=red.bp, rhs_corr=rhs_corr, chi2=red.chi2,
+        u18=red.u18, minv6=minv6, bl3=red.bl3,
     )
 
 
-def back_substitute_rows(pieces: RowsPieces, problem, dxp, O):
-    """back_substitute in rows layout: dxl = Hll_d^{-1}(-bl - W^T dxp)."""
-    u = pieces.u18
-    m11, m21, m22, m31, m32, m33 = pieces.minv6
-    dxp_g = jnp.einsum(
-        "kpl,pi->ikl", O, dxp, precision=jax.lax.Precision.HIGHEST
-    )  # (6, K, L)
-    Wt = [
-        sum(jnp.sum(u[3 * i + j] * dxp_g[i], axis=0) for i in range(6))
-        for j in range(3)
-    ]
-    r0 = -pieces.bl3[0] - Wt[0]
-    r1 = -pieces.bl3[1] - Wt[1]
-    r2 = -pieces.bl3[2] - Wt[2]
-    z0 = m11 * r0
-    z1 = m21 * r0 + m22 * r1
-    z2 = m31 * r0 + m32 * r1 + m33 * r2
-    d0 = m11 * z0 + m21 * z1 + m31 * z2
-    d1 = m22 * z1 + m32 * z2
-    d2 = m33 * z2
-    dxl = jnp.stack([d0, d1, d2], axis=-1)  # (L, 3)
-    return jnp.where(problem.point_valid[:, None], dxl, 0.0)
+def build_local_pieces(
+    problem: BucketedBAProblem, cam, active, robust_delta, mu
+) -> LocalPieces:
+    """Everything up to (but excluding) the global pose solve."""
+    obs = prepare_obs(problem, active)
+    red = assemble(problem, obs, cam, robust_delta)
+    return _pieces_tail(problem, red, mu, obs.cam)
 
 
 def solve_pose_system(S, rhs, pose_fixed):
-    """Gauge-fix + dense Cholesky solve of the reduced camera system.
-
-    cholesky + two triangular solves directly — measured 2.4x faster than
-    jax.scipy cho_factor/cho_solve at 576x576 on TPU (benchmarks/breakdown9)."""
+    """Gauge-fix + dense Cholesky solve of the reduced camera system
+    (cholesky + two triangular solves)."""
     dtype = S.dtype
     fixed6 = jnp.repeat(pose_fixed, 6)
     S = jnp.where(fixed6[:, None] | fixed6[None, :], 0.0, S)
@@ -714,24 +551,26 @@ def solve_pose_system(S, rhs, pose_fixed):
     return dxp_flat.reshape(-1, 6)
 
 
-def back_substitute(pieces: LocalPieces, problem: BucketedBAProblem, dxp):
+def back_substitute(pieces: LocalPieces, problem: BucketedBAProblem, dxp, cam_t):
     """Landmark back-substitution dxl = Hll_d^{-1}(-bl - W^T dxp) — local."""
-    dxp_g = dxp[problem.obs_cam]  # (L, K, 6)
-    Wt_dxp = jnp.einsum("lkij,lki->lj", pieces.U, dxp_g)  # (L, 3)
-    rhs_l = -pieces.bl - Wt_dxp
-    Minv = pieces.Minv
-    dxl = jnp.einsum("lji,ljk,lk->li", Minv, Minv, rhs_l)  # Minv^T (Minv rhs)
+    Wt = _ut_times(pieces.u18, _pose_gather(dxp, cam_t))
+    dxl = _hinv(pieces.minv6, -pieces.bl3 - Wt).T
     return jnp.where(problem.point_valid[:, None], dxl, 0.0)
+
+
+def _damped_step(problem, pieces: LocalPieces, cam_t):
+    """Solve the reduced system and back-substitute: (dxp, dxl)."""
+    rhs = -(pieces.bp.reshape(-1) - pieces.rhs_corr)
+    dxp = solve_pose_system(pieces.S_half, rhs, problem.pose_fixed)
+    dxp = jnp.where(problem.pose_fixed[:, None], 0.0, dxp)
+    return dxp, back_substitute(pieces, problem, dxp, cam_t)
 
 
 def reduce_and_solve(problem: BucketedBAProblem, cam, active, robust_delta, mu):
     """One damped-GN step. Returns (dxp (P,6), dxl (L,3), chi2, bp, bl)."""
     pieces = build_local_pieces(problem, cam, active, robust_delta, mu)
-    rhs = -(pieces.bp.reshape(-1) - pieces.rhs_corr)
-    dxp = solve_pose_system(pieces.S_half, rhs, problem.pose_fixed)
-    dxp = jnp.where(problem.pose_fixed[:, None], 0.0, dxp)
-    dxl = back_substitute(pieces, problem, dxp)
-    return dxp, dxl, pieces.chi2, pieces.bp, pieces.bl
+    dxp, dxl = _damped_step(problem, pieces, problem.obs_cam.T)
+    return dxp, dxl, pieces.chi2, pieces.bp, pieces.bl3.T
 
 
 def _apply_update(problem: BucketedBAProblem, dxp, dxl) -> BucketedBAProblem:
@@ -748,109 +587,36 @@ def ba_iterate(
     active,
     num_iters: int,
     robust_delta: Optional[float],
-    use_pallas: Optional[bool] = None,
 ) -> Tuple[BucketedBAProblem, jnp.ndarray, jnp.ndarray]:
-    """Nielsen-damped LM loop (protocol identical to schur.ba_iterate).
-
-    One loop body, two interchangeable reduction providers (same algebra,
-    same accept/reject protocol as the reference's problem.cc:92-167 —
-    rejected steps roll back):
-
-    * **Pallas path** (TPU, lane-aligned L, static cam/robust_delta): the
-      fused assembly kernel (optim/assembly_pallas.py), with the
-      loop-constant observation buffers prepared ONCE and closed over.
-    * **XLA path** (CPU / unaligned shapes): residual+Jacobian pass +
-      einsum reductions.
-
-    The scan carries the mu-independent reductions (Hll, bl, U, Hpp, bp,
-    chi2) of the CURRENT linearization point and assembles speculatively at
-    the candidate: exactly ONE reduction pass per iteration — its chi2 is
-    the candidate test, and on acceptance it becomes the next carry. A
-    rejected step only re-damps the carried reductions (mu enters in
-    `_pieces_tail` only). This replaced the earlier assembly+chi2-kernel
-    pair per iteration (saved the separate residual-only kernel pass,
-    ~0.2 ms/iter at the bench shape, benchmarks/breakdown10.py)."""
-    if use_pallas is None:
-        use_pallas = _pallas_assembly_ok(problem, cam, robust_delta)
-    if use_pallas:
-        from . import assembly_pallas
-
-        statics = dict(
-            fx=float(cam.fx),
-            fy=float(cam.fy),
-            cx=float(cam.cx),
-            cy=float(cam.cy),
-            bf=float(cam.bf),
-            robust_delta=robust_delta,
-        )
-        w_active = problem.obs_inv_sigma2 * active.astype(jnp.float32)
-        prep = assembly_pallas.prepare(
-            problem.obs_uvr, w_active, ~problem.pose_fixed, problem.obs_cam
-        )
-        # Loop-constant one-hot camera assignment in (K, P, L) layout for
-        # the rows-layout tail (scatter/gather by MXU/elementwise chains).
-        O = jax.nn.one_hot(prep.cam_t, problem.num_poses, axis=1)
-        # Loop-constant banded-Gram layout (chunked S_corr — see ChunkPlan).
-        plan = plan_chunks(
-            prep.cam_t, prep.w_t > 0, problem.num_poses
-        )
-
-        def reduce_fn(prob):
-            return assembly_pallas.assemble_prepared_rows(
-                prob.pose_R, prob.pose_t, prob.points, prep, **statics
-            )
-
-        def step_fn(prob, red, mu):
-            pieces = _pieces_tail_rows(prob, red, mu, O, plan)
-            rhs = -(pieces.bp.reshape(-1) - pieces.rhs_corr)
-            dxp = solve_pose_system(pieces.S_half, rhs, prob.pose_fixed)
-            dxp = jnp.where(prob.pose_fixed[:, None], 0.0, dxp)
-            dxl = back_substitute_rows(pieces, prob, dxp, O)
-            return dxp, dxl, pieces.bp, pieces.bl3.T
-
-    else:
-
-        def reduce_fn(prob):
-            terms = _edge_terms(prob, cam, active, robust_delta)[:5]
-            return reductions_from_terms(prob, terms)
-
-        step_fn = None
-
-    return _ba_iterate_core(problem, reduce_fn, num_iters, step_fn=step_fn)
+    """Nielsen-damped LM loop (protocol identical to schur.ba_iterate and
+    the reference's problem.cc:92-167 — rejected steps roll back), with
+    the banded S-Gram when the window allows it (`plan_chunks`)."""
+    obs = prepare_obs(problem, active)
+    plan = plan_chunks(obs.cam, obs.w > 0, problem.num_poses)
+    return _lm_loop(problem, obs, cam, robust_delta, num_iters, plan)
 
 
-def _ba_iterate_core(
-    problem: BucketedBAProblem, reduce_fn, num_iters: int, step_fn=None
+def _lm_loop(
+    problem: BucketedBAProblem, obs: ObsRows, cam, robust_delta,
+    num_iters: int, plan: Optional[ChunkPlan],
 ) -> Tuple[BucketedBAProblem, jnp.ndarray, jnp.ndarray]:
-    """Shared LM scan: carry reductions, assemble once per iteration.
-
-    `step_fn(prob, red, mu) -> (dxp, dxl, bp, bl)` computes the damped step
-    from the carried reductions; the default consumes the XLA-layout tuple,
-    the Pallas path passes a rows-layout variant (_pieces_tail_rows)."""
-    red0 = reduce_fn(problem)
+    """The LM scan. It carries the mu-independent reductions of the CURRENT
+    linearization point and assembles speculatively at the candidate:
+    exactly ONE assembly per iteration — its chi2 is the candidate test,
+    and on acceptance it becomes the next carry. A rejected step only
+    re-damps the carried reductions (mu enters in `_pieces_tail` only)."""
     dtype = problem.points.dtype
-
-    if step_fn is None:
-
-        def step_fn(prob, red, mu):
-            Hll, bl, U, Hpp, bp, chi2 = red
-            pieces = _pieces_tail(prob, Hll, bl, U, Hpp, bp, chi2, mu)
-            rhs = -(pieces.bp.reshape(-1) - pieces.rhs_corr)
-            dxp = solve_pose_system(pieces.S_half, rhs, prob.pose_fixed)
-            dxp = jnp.where(prob.pose_fixed[:, None], 0.0, dxp)
-            dxl = back_substitute(pieces, prob, dxp)
-            return dxp, dxl, bp, bl
 
     def body(carry, _):
         pose_R, pose_t, points, red, mu, nu, n_acc = carry
         prob = problem._replace(pose_R=pose_R, pose_t=pose_t, points=points)
-        chi2 = red[5]
-        dxp, dxl, bp, bl = step_fn(prob, red, mu)
+        pieces = _pieces_tail(prob, red, mu, obs.cam, plan)
+        dxp, dxl = _damped_step(prob, pieces, obs.cam)
         candidate = _apply_update(prob, dxp, dxl)
-        red_c = reduce_fn(candidate)  # speculative: reductions at candidate
-        chi2_c = red_c[5]
+        red_c = assemble(candidate, obs, cam, robust_delta)
         accept, prob_new, mu_new, nu_new = _lm_accept(
-            prob, candidate, chi2, chi2_c, dxp, dxl, bp, bl, mu, nu
+            prob, candidate, red.chi2, red_c.chi2, dxp, dxl, red.bp,
+            red.bl3.T, mu, nu,
         )
         red_new = jax.tree.map(lambda c, o: jnp.where(accept, c, o), red_c, red)
         new_carry = (
@@ -868,7 +634,7 @@ def _ba_iterate_core(
         problem.pose_R,
         problem.pose_t,
         problem.points,
-        red0,
+        assemble(problem, obs, cam, robust_delta),
         jnp.asarray(1e-3, dtype=dtype),
         jnp.asarray(2.0, dtype=dtype),
         jnp.asarray(0, dtype=jnp.int32),
@@ -877,238 +643,27 @@ def _ba_iterate_core(
         body, init, None, length=num_iters
     )
     problem = problem._replace(pose_R=pose_R, pose_t=pose_t, points=points)
-    return problem, red[5], n_acc
+    return problem, red.chi2, n_acc
 
 
 # ----------------------------------------------------------------------
-# Matrix-free Schur + PCG — the whole-map scale path (bucketed).
+# Matrix-free Schur + PCG — the whole-map scale path.
 #
-# For global BA (10^3 KFs x 10^5 landmarks) the dense (P,L,6,3) cross factor
-# doesn't fit; S is applied matrix-free. In bucketed layout the matvec is:
-# per-landmark K-axis reductions (no scatter) + ONE one-hot matmul for the
-# pose-side accumulation. Replaces g2o's sparse CHOLMOD factorization in
-# `GlobalBundleAdjustemnt` (g2oOptimizer.cc:80-385).
+# For global BA (10^3 KFs x 10^5 landmarks) S is applied matrix-free: per
+# landmark K-axis reductions plus one pose-side segment_sum per matvec.
+# Replaces g2o's sparse CHOLMOD factorization in `GlobalBundleAdjustemnt`
+# (g2oOptimizer.cc:80-385).
 # ----------------------------------------------------------------------
 
 
-# Pose-side accumulation memory cap: above this many one-hot elements the
-# (L*K, P) indicator is built in chunks inside a lax.scan instead of being
-# materialized (at KITTI-00 scale — P≈10^3, L≈10^5 — the full one-hot would
-# be gigabytes of HBM read per CG matvec).
-_ONE_HOT_BUDGET = 1 << 26  # elements (~256 MB f32)
-
-
-def _pose_accumulate(obs_cam: jnp.ndarray, X: jnp.ndarray, P: int) -> jnp.ndarray:
-    """sum over edges e of X[e] into their pose rows: (L, K, D) -> (P, D).
-
-    MXU-friendly one-hot matmul, chunked over landmarks when the full
-    indicator would exceed the memory budget — the whole-map-scale version
-    of `_build_Y`'s scatter-free reduction."""
-    L, K = obs_cam.shape
-    D = X.shape[-1]
-    E = L * K
-    oc = obs_cam.reshape(E)
-    Xf = X.reshape(E, D)
-    if E * P <= _ONE_HOT_BUDGET:
-        O = jax.nn.one_hot(oc, P, dtype=X.dtype)
-        return jnp.einsum("ep,ed->pd", O, Xf)
-    chunk = max(_ONE_HOT_BUDGET // (P * K), 128) * K  # edge-chunk, K-aligned
-    nb = -(-E // chunk)
-    pad = nb * chunk - E
-    oc = jnp.pad(oc, (0, pad))  # padded edges point at pose 0 ...
-    Xf = jnp.pad(Xf, ((0, pad), (0, 0)))  # ... with zero contribution
-    oc = oc.reshape(nb, chunk)
-    Xf = Xf.reshape(nb, chunk, D)
-
-    def body(acc, inp):
-        oc_b, X_b = inp
-        O_b = jax.nn.one_hot(oc_b, P, dtype=X.dtype)
-        return acc + jnp.einsum("ep,ed->pd", O_b, X_b), None
-
-    acc, _ = jax.lax.scan(body, jnp.zeros((P, D), X.dtype), (oc, Xf))
-    return acc
-
-
-def _cg_context(problem: BucketedBAProblem, cam, active, robust_delta, mu):
-    """Precompute per-iteration quantities for the matrix-free solve."""
-    P, L = problem.num_poses, problem.num_points
-    K = problem.obs_cam.shape[1]
-    r, Jp, Jl, w, chi2, _ = _edge_terms(problem, cam, active, robust_delta)
-    dtype = r.dtype
-    eye3 = jnp.eye(3, dtype=dtype)
-    eye6 = jnp.eye(6, dtype=dtype)
-    free_pose = (~problem.pose_fixed)[problem.obs_cam]
-    Jp = Jp * free_pose[..., None, None].astype(dtype)
-
-    Hll = jnp.einsum("lkri,lk,lkrj->lij", Jl, w, Jl)
-    bl = jnp.einsum("lkri,lk,lkr->li", Jl, w, r)
-    U = jnp.einsum("lkri,lk,lkrj->lkij", Jp, w, Jl)
-    Hpp = _pose_accumulate(
-        problem.obs_cam,
-        jnp.einsum("lkri,lk,lkrj->lkij", Jp, w, Jp).reshape(L, K, 36),
-        P,
-    ).reshape(P, 6, 6)
-    bp = _pose_accumulate(
-        problem.obs_cam,
-        jnp.einsum("lkri,lk,lkr->lki", Jp, w, r),
-        P,
-    )
-
-    dll = jnp.diagonal(Hll, axis1=-2, axis2=-1)
-    Hll_d = Hll + mu * dll[..., None] * eye3 + 1e-8 * eye3
-    Hll_d = jnp.where(problem.point_valid[:, None, None], Hll_d, eye3)
-    Minv = trinv_lower3x3(chol3x3(Hll_d))  # Lc^{-1}
-    dpp = jnp.diagonal(Hpp, axis1=-2, axis2=-1)
-    Hpp_d = Hpp + mu * dpp[..., None] * eye6 + 1e-8 * eye6
-    return r, U, Minv, Hpp_d, bp, bl, chi2
-
-
-def _apply_Ainv(Minv, x):
-    """Hll_d^{-1} x = Minv^T (Minv x), batched (L, 3)."""
-    return jnp.einsum("lji,ljk,lk->li", Minv, Minv, x)
-
-
-def _pose_gather(
-    obs_cam: jnp.ndarray, v: jnp.ndarray, precision=None
-) -> jnp.ndarray:
-    """v (P, D) -> (L, K, D) by camera index, as a (chunked) one-hot matmul.
-
-    The direct `v[obs_cam]` gather costs ~1.2 ms at the 600-KF/1.2e5-
-    landmark scale shape (TPU gathers serialize); the one-hot MXU form is
-    ~5x faster at DEFAULT precision. DEFAULT truncates v to bf16 on the
-    MXU (~0.4% on the gathered values) — acceptable on the rows TPU path
-    because the matvec's pose accumulation is already a DEFAULT-precision
-    one-hot product and the LM accept/reject gates on an exact chi2.
-    Callers needing an exact gather (the XLA fallback path, whose other
-    einsums are f32) pass precision=jax.lax.Precision.HIGHEST."""
-    L, K = obs_cam.shape
-    P, D = v.shape
-    E = L * K
-    oc = obs_cam.reshape(E)
-    if E * P <= _ONE_HOT_BUDGET:
-        O = jax.nn.one_hot(oc, P, dtype=v.dtype)
-        return jnp.einsum("ep,pd->ed", O, v, precision=precision).reshape(L, K, D)
-    chunk = max(_ONE_HOT_BUDGET // (P * K), 128) * K
-    nb = -(-E // chunk)
-    pad = nb * chunk - E
-    oc_p = jnp.pad(oc, (0, pad)).reshape(nb, chunk)
-
-    def body(_, oc_b):
-        O_b = jax.nn.one_hot(oc_b, P, dtype=v.dtype)
-        return None, jnp.einsum("ep,pd->ed", O_b, v, precision=precision)
-
-    _, out = jax.lax.scan(body, None, oc_p)
-    return out.reshape(nb * chunk, D)[:E].reshape(L, K, D)
-
-
-def _schur_matvec(v, U, Minv, Hpp_d, obs_cam, pose_fixed,
-                  precision=jax.lax.Precision.HIGHEST):
-    """S @ v for v (P, 6), matrix-free: two K-reductions + one (chunked)
-    one-hot accumulation. Exact-precision gather by default — this is the
-    XLA fallback operator whose surrounding einsums are f32."""
+def _schur_matvec(v, u18, minv6, Hpp_d, cam_t, pose_fixed):
+    """S @ v for v (P, 6): Hpp_d v - W Hll_d^{-1} W^T v."""
     P = Hpp_d.shape[0]
     v = jnp.where(pose_fixed[:, None], 0.0, v)
-    Wt_v = jnp.einsum(
-        "lkij,lki->lj", U, _pose_gather(obs_cam, v, precision=precision)
-    )  # (L, 3)
-    y = _apply_Ainv(Minv, Wt_v)  # (L, 3)
-    Uy = jnp.einsum("lkij,lj->lki", U, y)  # (L, K, 6)
-    Wy = _pose_accumulate(obs_cam, Uy, P)
+    y = _hinv(minv6, _ut_times(u18, _pose_gather(v, cam_t)))
+    Wy = _pose_sum(_u_times(u18, y), cam_t, P)
     Sv = jnp.einsum("pij,pj->pi", Hpp_d, v) - Wy
     return jnp.where(pose_fixed[:, None], v, Sv)
-
-
-def _schur_matvec_rows(v, u18, minv6, Hpp_d, obs_cam, pose_fixed):
-    """S @ v in rows layout (u18 (18, K, L) from the Pallas assembly).
-
-    The (L, K, 6, 3)-shaped U einsums of _schur_matvec pay the 128-lane
-    padding tax on their trailing dims (~2.8 ms of a 4.8 ms matvec at the
-    600-KF scale shape); here every per-landmark product is an elementwise
-    row chain. The two layout transposes are (L, K, 6) f32 — small."""
-    P = Hpp_d.shape[0]
-    L, K = obs_cam.shape
-    v = jnp.where(pose_fixed[:, None], 0.0, v)
-    vg6 = _pose_gather(obs_cam, v).transpose(2, 1, 0)  # (6, K, L)
-
-    def U_(i, m):
-        return u18[3 * i + m]
-
-    Wt = jnp.stack(
-        [
-            sum(jnp.sum(U_(i, j) * vg6[i], axis=0) for i in range(6))
-            for j in range(3)
-        ]
-    )  # (3, L)
-    y = _hinv_rows(minv6, Wt)
-    Uy6 = jnp.stack(
-        [U_(i, 0) * y[0] + U_(i, 1) * y[1] + U_(i, 2) * y[2] for i in range(6)]
-    )  # (6, K, L)
-    Wy = _pose_accumulate(obs_cam, Uy6.transpose(2, 1, 0), P)
-    Sv = jnp.einsum("pij,pj->pi", Hpp_d, v) - Wy
-    return jnp.where(pose_fixed[:, None], v, Sv)
-
-
-def cg_reduce_and_solve_rows(
-    problem: BucketedBAProblem, cam, active, robust_delta, mu,
-    cg_iters: int = 100, cg_tol: float = 1e-6, prep=None,
-):
-    """cg_reduce_and_solve on the Pallas-assembly rows layout (TPU path).
-
-    Same algebra; the context comes from the fused kernel and every
-    per-landmark tensor stays landmarks-on-lanes. `prep` (the transposed
-    observation buffers) depends only on the observation graph, NOT on
-    poses/points/mu — LM loops pass it once (ba_iterate_cg) so the
-    transposes are not re-materialized every iteration."""
-    from . import assembly_pallas
-
-    P, L = problem.num_poses, problem.num_points
-    if prep is None:
-        w_active = problem.obs_inv_sigma2 * active.astype(jnp.float32)
-        prep = assembly_pallas.prepare(
-            problem.obs_uvr, w_active, ~problem.pose_fixed, problem.obs_cam
-        )
-    red = assembly_pallas.assemble_prepared_rows(
-        problem.pose_R, problem.pose_t, problem.points, prep,
-        fx=float(cam.fx), fy=float(cam.fy), cx=float(cam.cx),
-        cy=float(cam.cy), bf=float(cam.bf), robust_delta=robust_delta,
-    )
-    dtype = red.bl3.dtype
-    minv6 = _damped_minv_rows(red.hll9, problem.point_valid, mu)
-    eye6 = jnp.eye(6, dtype=dtype)
-    dpp = jnp.diagonal(red.Hpp, axis1=-2, axis2=-1)
-    Hpp_d = red.Hpp + (mu * dpp[..., None] + 1e-8) * eye6
-
-    def U_(i, m):
-        return red.u18[3 * i + m]
-
-    # rhs = -(bp - W Hll_d^{-1} bl).
-    y = _hinv_rows(minv6, red.bl3)
-    Uy6 = jnp.stack(
-        [U_(i, 0) * y[0] + U_(i, 1) * y[1] + U_(i, 2) * y[2] for i in range(6)]
-    )
-    Wy = _pose_accumulate(problem.obs_cam, Uy6.transpose(2, 1, 0), P)
-    rhs = -(red.bp - Wy)
-
-    matvec = lambda v: _schur_matvec_rows(
-        v, red.u18, minv6, Hpp_d, problem.obs_cam, problem.pose_fixed
-    )
-    diag_ok = problem.pose_valid & ~problem.pose_fixed
-    M = jnp.where(diag_ok[:, None, None], Hpp_d, eye6)
-    Mp = jax.numpy.linalg.inv(M + 1e-8 * eye6)
-
-    dxp, cg_n = _pcg(matvec, rhs, Mp, problem.pose_fixed, cg_iters, cg_tol)
-    dxp = jnp.where(problem.pose_fixed[:, None], 0.0, dxp)
-
-    vg6 = _pose_gather(problem.obs_cam, dxp).transpose(2, 1, 0)
-    Wt = jnp.stack(
-        [
-            sum(jnp.sum(U_(i, j) * vg6[i], axis=0) for i in range(6))
-            for j in range(3)
-        ]
-    )
-    dxl = _hinv_rows(minv6, -red.bl3 - Wt).T
-    dxl = jnp.where(problem.point_valid[:, None], dxl, 0.0)
-    return dxp, dxl, red.chi2, red.bp, red.bl3.T, cg_n
 
 
 def _pcg(matvec, b, Minv_blocks, pose_fixed, max_iters: int, tol: float):
@@ -1116,9 +671,8 @@ def _pcg(matvec, b, Minv_blocks, pose_fixed, max_iters: int, tol: float):
 
     `tol` is the inexact-Newton forcing term (stop at ||r|| <= tol ||b||):
     LM steps do not need tight linear solves — the Nielsen accept/reject
-    gates step quality — and the bf16-grade matvec cannot reach 1e-6
-    anyway, so a tight tol just burns max_iters matvecs per step (a 1e-6
-    default made every GBA step run all 100 CG iterations)."""
+    gates step quality — so a tight tol just burns max_iters matvecs per
+    step."""
     b = jnp.where(pose_fixed[:, None], 0.0, b)
     precond = lambda r: jnp.einsum("pij,pj->pi", Minv_blocks, r)
     x0 = jnp.zeros_like(b)
@@ -1148,48 +702,39 @@ def _pcg(matvec, b, Minv_blocks, pose_fixed, max_iters: int, tol: float):
 
 def cg_reduce_and_solve(
     problem: BucketedBAProblem, cam, active, robust_delta, mu,
-    cg_iters: int = 100, cg_tol: float = 1e-6,
+    cg_iters: int = 100, cg_tol: float = 1e-6, obs: Optional[ObsRows] = None,
 ):
-    """One damped-GN step via matrix-free Schur + PCG (bucketed).
+    """One damped-GN step via matrix-free Schur + PCG.
 
     The default `cg_tol` is a tight solve; the LM loop (`ba_iterate_cg`)
-    passes the inexact-Newton forcing term 1e-2 explicitly — its
-    accept/reject gate makes a tight linear solve wasted matvecs there,
-    but external callers get the exact-step semantics by default.
+    passes the inexact-Newton forcing term 1e-2 and its loop-constant `obs`.
 
     Returns (dxp (P,6), dxl (L,3), chi2, bp, bl, cg_n)."""
-    P, L = problem.num_poses, problem.num_points
-    r, U, Minv, Hpp_d, bp, bl, chi2 = _cg_context(
-        problem, cam, active, robust_delta, mu
-    )
-    K = U.shape[1]
-    dtype = bp.dtype
+    P = problem.num_poses
+    if obs is None:
+        obs = prepare_obs(problem, active)
+    red = assemble(problem, obs, cam, robust_delta)
+    minv6 = _damped_minv(red.hll9, problem.point_valid, mu)
+    Hpp_d = _damp_hpp(red.Hpp, mu)
 
-    # rhs = -(bp - W Hll_d^{-1} bl), edge-wise.
-    y = _apply_Ainv(Minv, bl)
-    Uy = jnp.einsum("lkij,lj->lki", U, y)
-    Wy = _pose_accumulate(problem.obs_cam, Uy, P)
-    rhs = -(bp - Wy)
+    # rhs = -(bp - W Hll_d^{-1} bl).
+    Wy = _pose_sum(_u_times(red.u18, _hinv(minv6, red.bl3)), obs.cam, P)
+    rhs = -(red.bp - Wy)
 
     matvec = lambda v: _schur_matvec(
-        v, U, Minv, Hpp_d, problem.obs_cam, problem.pose_fixed
+        v, red.u18, minv6, Hpp_d, obs.cam, problem.pose_fixed
     )
-    eye6 = jnp.eye(6, dtype=dtype)
+    eye6 = jnp.eye(6, dtype=Hpp_d.dtype)
     diag_ok = problem.pose_valid & ~problem.pose_fixed
     M = jnp.where(diag_ok[:, None, None], Hpp_d, eye6)
-    Mp = jax.numpy.linalg.inv(M + 1e-8 * eye6)
+    Mp = jnp.linalg.inv(M + 1e-8 * eye6)
 
     dxp, cg_n = _pcg(matvec, rhs, Mp, problem.pose_fixed, cg_iters, cg_tol)
     dxp = jnp.where(problem.pose_fixed[:, None], 0.0, dxp)
-
-    Wt_dxp = jnp.einsum(
-        "lkij,lki->lj",
-        U,
-        _pose_gather(problem.obs_cam, dxp, precision=jax.lax.Precision.HIGHEST),
-    )
-    dxl = _apply_Ainv(Minv, -bl - Wt_dxp)
+    Wt = _ut_times(red.u18, _pose_gather(dxp, obs.cam))
+    dxl = _hinv(minv6, -red.bl3 - Wt).T
     dxl = jnp.where(problem.point_valid[:, None], dxl, 0.0)
-    return dxp, dxl, chi2, bp, bl, cg_n
+    return dxp, dxl, red.chi2, red.bp, red.bl3.T, cg_n
 
 
 def _lm_accept(prob, candidate, chi2, chi2_c, dxp, dxl, bp, bl, mu, nu):
@@ -1219,35 +764,19 @@ def ba_iterate_cg(
     cg_iters: int = 100,
 ) -> Tuple[BucketedBAProblem, jnp.ndarray, jnp.ndarray]:
     """LM loop using the matrix-free PCG step (whole-map scale)."""
-    chi20 = chi2_only(problem, cam, active, robust_delta)
+    obs = prepare_obs(problem, active)
+    chi20 = _chi2(problem, obs, cam, robust_delta)
     mu0 = jnp.asarray(1e-3, dtype=chi20.dtype) + 0.0 * chi20
-    use_rows = _pallas_assembly_ok(problem, cam, robust_delta)
-    if use_rows:
-        # Loop-constant context: the transposed observation buffers depend
-        # only on the observation graph, so build them ONCE and close over
-        # them — re-materializing them every LM iteration dominated the
-        # per-step cost at GBA scale (L ~ 1e5).
-        from . import assembly_pallas
-
-        w_active = problem.obs_inv_sigma2 * active.astype(jnp.float32)
-        prep0 = assembly_pallas.prepare(
-            problem.obs_uvr, w_active, ~problem.pose_fixed, problem.obs_cam
-        )
-        step = lambda *a, **kw: cg_reduce_and_solve_rows(*a, prep=prep0, **kw)
-    else:
-        step = cg_reduce_and_solve
 
     def body(carry, _):
         pose_R, pose_t, points, chi2, mu, nu, n_acc = carry
         prob = problem._replace(pose_R=pose_R, pose_t=pose_t, points=points)
-        # Inexact-Newton forcing term: the LM gate bounds step quality, so
-        # a tight linear solve here is wasted matvecs (measured r3).
-        dxp, dxl, _, bp, bl, _ = step(
+        dxp, dxl, _, bp, bl, _ = cg_reduce_and_solve(
             prob, cam, active, robust_delta, mu, cg_iters=cg_iters,
-            cg_tol=1e-2,
+            cg_tol=1e-2, obs=obs,
         )
         candidate = _apply_update(prob, dxp, dxl)
-        chi2_c = chi2_only(candidate, cam, active, robust_delta)
+        chi2_c = _chi2(candidate, obs, cam, robust_delta)
         accept, prob_new, mu_new, nu_new = _lm_accept(
             prob, candidate, chi2, chi2_c, dxp, dxl, bp, bl, mu, nu
         )

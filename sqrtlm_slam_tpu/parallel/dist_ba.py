@@ -1,7 +1,7 @@
 """Distributed bundle adjustment over a device mesh — shard_map + psum.
 
 The reference has NO distributed backend (single-process pthreads, SURVEY.md
-§2.10/§5.8); this module is the fresh TPU-native design the survey calls for:
+§2.10/§5.8); this module is the fresh design the survey calls for:
 
   * landmarks (and the observation edges that touch them) are sharded over
     the mesh axis — each landmark's full observation set lives on exactly one
@@ -10,14 +10,14 @@ The reference has NO distributed backend (single-process pthreads, SURVEY.md
   * poses are replicated (P is small: a local BA window or the keyframe set);
   * each device computes its partial reduced camera system
     S_d = Hpp_d - W_d Hll_d^-1 W_d^T and rhs_d from its edges, and ONE
-    `psum` over ICI produces the exact global (S, rhs) — identical algebra
+    `psum` over the mesh produces the exact global (S, rhs) — identical algebra
     to the single-device engine in optim/schur.py;
   * every device solves the (small, dense) reduced system redundantly —
     cheaper than distributing a 6P x 6P Cholesky — and back-substitutes its
     own landmark shard.
 
 Communication per iteration: one psum of (P*6)^2 + P*6 + 1 floats. For
-P = 64 that is ~0.6 MB — ICI-bound time in microseconds, so scaling is
+P = 64 that is ~0.6 MB — microseconds over NVLink, so scaling is
 compute-bound (the per-edge Jacobian work and the Hll inversions partition
 perfectly). This is the §7.1-step-8 "sequence parallelism of this domain":
 scaling in trajectory length / map size.
@@ -194,7 +194,7 @@ def make_distributed_ba_step(
         S_corr_local = jnp.einsum("alm,blm->ab", WHinv, W)
         rhs_local = jnp.einsum("alm,lm->a", WHinv, bl)
 
-        # ONE psum each for the reduced system over ICI.
+        # ONE psum each for the reduced system.
         Hpp_g = jax.lax.psum(Hpp, axis)
         bp_g = jax.lax.psum(bp, axis)
         S_corr = jax.lax.psum(S_corr_local, axis)
@@ -257,7 +257,7 @@ def make_distributed_ba_step(
 # is shard-local by construction, and the per-shard LocalPieces
 # (S_half, bp, rhs_corr, chi2) sum exactly — ONE psum yields the global
 # reduced camera system, then every device solves it redundantly and
-# back-substitutes its own rows. No scatters anywhere.
+# back-substitutes its own rows.
 # ----------------------------------------------------------------------
 
 
@@ -291,7 +291,7 @@ def partition_bucketed(
             ids = lm_ids[d]
             sel = ids >= 0
             out[d, sel] = xn[ids[sel]]
-        return jnp.asarray(out)
+        return out
 
     sharded = ShardedBucketedBA(
         pose_R=b.pose_R,
@@ -305,6 +305,19 @@ def partition_bucketed(
         obs_valid=shard_rows(b.obs_valid, False),
     )
     return sharded, lm_ids
+
+
+def place_on_mesh(sp: ShardedBucketedBA, mesh: Mesh) -> ShardedBucketedBA:
+    """Put each landmark shard on its own device and replicate the poses, so
+    the shard_map starts where its blocks run instead of on one device."""
+    replicated = NamedSharding(mesh, P())
+    sharded = NamedSharding(mesh, P(mesh.axis_names[0]))
+    return ShardedBucketedBA(
+        *(
+            jax.device_put(x, replicated if name.startswith("pose_") else sharded)
+            for name, x in zip(ShardedBucketedBA._fields, sp)
+        )
+    )
 
 
 def make_bucketed_ba_step(
@@ -328,14 +341,14 @@ def make_bucketed_ba_step(
         pieces = schur_bucketed.build_local_pieces(
             local, cam, obs_valid, robust_delta, mu
         )
-        # ONE fused psum of the reduced system over ICI.
+        # ONE fused psum of the reduced system.
         S, bp, rhs_corr, chi2 = jax.lax.psum(
             (pieces.S_half, pieces.bp, pieces.rhs_corr, pieces.chi2), axis
         )
         rhs = -(bp.reshape(-1) - rhs_corr)
         dxp = schur_bucketed.solve_pose_system(S, rhs, pose_fixed)
         dxp = jnp.where(pose_fixed[:, None], 0.0, dxp)
-        dxl = schur_bucketed.back_substitute(pieces, local, dxp)
+        dxl = schur_bucketed.back_substitute(pieces, local, dxp, obs_cam.T)
 
         new_pose = se3.retract(se3.SE3(pose_R, pose_t), dxp)
         free = (~pose_fixed)[:, None]
@@ -420,7 +433,7 @@ def make_bucketed_lm_iterate(
             rhs = -(bp.reshape(-1) - rhs_corr)
             dxp = schur_bucketed.solve_pose_system(S, rhs, pose_fixed)
             dxp = jnp.where(pose_fixed[:, None], 0.0, dxp)
-            dxl = schur_bucketed.back_substitute(pieces, local, dxp)
+            dxl = schur_bucketed.back_substitute(pieces, local, dxp, obs_cam.T)
             dxl = jnp.where(point_valid[:, None], dxl, 0.0)
 
             new_pose = se3.retract(se3.SE3(pR, pt), dxp)
@@ -433,7 +446,7 @@ def make_bucketed_lm_iterate(
             # Nielsen gain ratio: pose term is replicated (bp is already the
             # global gradient), landmark term sums across shards.
             t_pose = jnp.sum(dxp * (mu * dxp - bp))
-            t_lm = jax.lax.psum(jnp.sum(dxl * (mu * dxl - pieces.bl)), axis)
+            t_lm = jax.lax.psum(jnp.sum(dxl * (mu * dxl - pieces.bl3.T)), axis)
             predicted = 0.5 * (t_pose + t_lm)
             rho = (chi2 - chi2_c) / jnp.maximum(predicted, 1e-12)
             accept = (rho > 0) & jnp.isfinite(chi2_c)
@@ -497,6 +510,7 @@ def distributed_ba_lm(
     ONE dispatch, gather back. Returns (problem, chi2, n_accepted)."""
     n_shards = mesh.devices.size
     sharded, lm_ids = partition_bucketed(b, n_shards)
+    sharded = place_on_mesh(sharded, mesh)
     iterate = make_bucketed_lm_iterate(
         mesh, cam, axis=mesh.axis_names[0], num_iters=num_iters,
         robust_delta=robust_delta,
@@ -526,6 +540,7 @@ def distributed_ba_bucketed(
     """Partition, iterate, gather back (bucketed fast path)."""
     n_shards = mesh.devices.size
     sharded, lm_ids = partition_bucketed(b, n_shards)
+    sharded = place_on_mesh(sharded, mesh)
     step = make_bucketed_ba_step(
         mesh, cam, axis=mesh.axis_names[0], mu=mu, robust_delta=robust_delta
     )

@@ -4,7 +4,7 @@ Each OS process runs:
 
     python -m sqrtlm_slam_tpu.parallel.mp_worker \
         --coordinator localhost:PORT --nproc N --pid I \
-        [--devices-per-proc 2] [--out result.npz] [--platform cpu]
+        [--devices-per-proc 2] [--out result.npz]
 
 All workers build the SAME deterministic synthetic BA problem
 (`eval.synthetic.make_ba_problem`), join the distributed runtime, and run the
@@ -12,9 +12,9 @@ full Nielsen-LM loop over the global mesh (`multiprocess.distributed_ba_lm`).
 Process 0 writes the replicated result to `--out` so a test harness can
 compare it against the single-process answer.
 
-This is the CPU-testable stand-in for a real pod launch: on TPU hosts the
-same module runs with `--platform tpu` (or platform unset) and the runtime's
-own topology, with no code changes — SURVEY §2.10 P7 / §5.8.
+Workers run on the CPU platform only: this is test scaffolding for the
+multi-process control plane (SURVEY §2.10 P7 / §5.8). On a GPU host one
+process drives every card.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ def main(argv=None) -> int:
     ap.add_argument("--nproc", type=int, required=True)
     ap.add_argument("--pid", type=int, required=True)
     ap.add_argument("--devices-per-proc", type=int, default=2)
-    ap.add_argument("--platform", default="cpu")
     ap.add_argument("--out", default="")
     ap.add_argument("--poses", type=int, default=5)
     ap.add_argument("--landmarks", type=int, default=48)
@@ -39,14 +38,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.platform == "cpu":
-        # Must land before the XLA backend client is created.
-        flags = os.environ.get("XLA_FLAGS", "")
-        if "xla_force_host_platform_device_count" not in flags:
-            os.environ["XLA_FLAGS"] = (
-                flags
-                + f" --xla_force_host_platform_device_count={args.devices_per_proc}"
-            ).strip()
+    # Must land before the XLA backend client is created.
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + f" --xla_force_host_platform_device_count={args.devices_per_proc}"
+        ).strip()
 
     from sqrtlm_slam_tpu.parallel import multiprocess
 
@@ -54,15 +51,14 @@ def main(argv=None) -> int:
         coordinator_address=args.coordinator,
         num_processes=args.nproc,
         process_id=args.pid,
-        platform=args.platform if args.platform != "auto" else None,
     )
 
     import jax
     import numpy as np
 
-    from sqrtlm_slam_tpu.utils.cache import enable_persistent_cache
+    from sqrtlm_slam_tpu.utils.cache import configure_jax
 
-    enable_persistent_cache()
+    configure_jax()
 
     from sqrtlm_slam_tpu.eval.synthetic import DEFAULT_CAM, make_ba_problem
     from sqrtlm_slam_tpu.optim import schur_bucketed

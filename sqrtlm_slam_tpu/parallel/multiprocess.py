@@ -7,8 +7,12 @@ protocol in /root/reference/src/backend/LocalMapping.cc:827-931). This module
 is the control plane that replaces it at multi-host scale: each host runs one
 JAX process, `jax.distributed.initialize` forms the global runtime, and the
 *same* shard_map Nielsen-LM used in-process (`dist_ba.make_bucketed_lm_iterate`)
-runs unchanged over the global mesh — collectives ride ICI within a slice and
-DCN across slices, chosen by XLA from the mesh layout.
+runs unchanged over the global mesh.
+
+It is CPU test scaffolding: processes on the host platform with gloo
+collectives stand in for a multi-host cluster. One process drives all the
+cards of one GPU host (chip_smoke.py --four), so nothing here starts a
+process per card.
 
 Design (also recorded in PERF.md "Multi-process distribution"):
 
@@ -26,14 +30,11 @@ Design (also recorded in PERF.md "Multi-process distribution"):
     all-gather), so every process leaves the call with identical arrays and
     no further synchronization is needed.
 
-On CPU (tests; this environment has one TPU chip) cross-process collectives
-use the gloo transport; on TPU pods `jax.distributed.initialize` picks up the
-runtime topology and the same code runs unmodified.
+Cross-process collectives use the gloo transport of the CPU backend.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -51,20 +52,13 @@ def initialize(
     coordinator_address: str,
     num_processes: int,
     process_id: int,
-    platform: Optional[str] = None,
 ) -> None:
-    """Join the distributed runtime. Call BEFORE any backend-initializing op.
-
-    `platform="cpu"` forces the host platform (with gloo cross-process
-    collectives) — the CPU-testable path; on a real pod leave it None and the
-    TPU runtime supplies topology. Safe to call once per process.
-    """
-    if platform == "cpu":
-        os.environ.setdefault("JAX_PLATFORMS", "cpu")
-        jax.config.update("jax_platforms", "cpu")
-        # Cross-process collectives on the CPU backend need an explicit
-        # transport; gloo ships with jaxlib.
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
+    """Join the distributed runtime on the CPU platform. Call BEFORE any
+    backend-initializing op; once per process."""
+    jax.config.update("jax_platforms", "cpu")
+    # Cross-process collectives on the CPU backend need an explicit
+    # transport; gloo ships with jaxlib.
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

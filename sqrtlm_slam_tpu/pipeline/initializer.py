@@ -1,6 +1,6 @@
 """Monocular two-view initialization — batched H/F RANSAC + model selection.
 
-TPU-native redesign of `Initializer`
+JAX redesign of `Initializer`
 (/root/reference/src/frontend/Initializer.cc): the reference launches two
 CPU threads computing homography and fundamental RANSAC in parallel
 (Initializer.cc:186-192); here BOTH hypothesis banks are batched device

@@ -1,6 +1,6 @@
 """Local mapping: keyframe processing, culling, and local bundle adjustment.
 
-TPU-native redesign of `LocalMapping` (/root/reference/src/backend/LocalMapping.cc):
+JAX redesign of `LocalMapping` (/root/reference/src/backend/LocalMapping.cc):
   * `ProcessNewKeyFrame` (:203-263) — observation/descriptor/covisibility
     updates (largely handled at insertion by the tracker + store).
   * `MapPointCulling` (:270-328) — found-ratio < 0.25 or too few observers.

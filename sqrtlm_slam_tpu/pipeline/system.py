@@ -1,6 +1,6 @@
 """SLAM system facade: wiring tracking + local mapping (+ loop closing).
 
-TPU-native equivalent of `ORB_SLAM2::System`
+JAX equivalent of `ORB_SLAM2::System`
 (/root/reference/src/System.cc): constructs the map store, tracker and local
 mapper, cross-wires them (System.cc:130-165), exposes `track_*` entry points
 (TrackFusion System.h:130 / TrackMonocular :127), trajectory savers in KITTI
@@ -56,6 +56,9 @@ class SlamSystem:
         vocabulary: Optional["vocab_mod.Vocabulary"] = None,
         loop_cfg=None,
     ):
+        from ..utils.cache import configure_jax
+
+        configure_jax()
         self.cam = cam
         self.cfg = cfg
         if vocabulary is None and cfg.use_shipped_vocab:
@@ -155,7 +158,7 @@ class SlamSystem:
         lazily from the first keyframe's descriptors when none was given
         (the reference loads a pre-trained 100 MB ORBvoc binary,
         System.cc:109 — see frontend/vocab.py for why on-domain training
-        is the TPU-native substitute)."""
+        is the JAX substitute)."""
         import numpy as np
 
         if self.vocabulary is None:

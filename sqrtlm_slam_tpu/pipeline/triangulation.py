@@ -1,6 +1,6 @@
 """Two-view triangulation of new map points — batched, jittable.
 
-TPU-native redesign of `LocalMapping::CreateNewMapPoints`
+JAX redesign of `LocalMapping::CreateNewMapPoints`
 (/root/reference/src/backend/LocalMapping.cc:329-661) and the epipolar
 search `ORBmatcher::SearchForTriangulation`
 (/root/reference/src/frontend/ORBmatcher.cc:887): instead of per-pair BoW

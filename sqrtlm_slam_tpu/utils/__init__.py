@@ -1,9 +1,7 @@
 """Utilities. Lazy re-exports (PEP 562): importing `utils.cache` to set the
-platform/cache config must NOT drag in the compute modules — `config.py`
-imports the frontend/pipeline stack, which creates jax constants at import
-and would initialize the backend before the platform override can run
-(this once made the "8-way CPU mesh" scaling bench silently run single-
-device on the TPU)."""
+JAX config must not drag in the compute modules — `config.py` imports the
+frontend/pipeline stack, which creates jax constants at import and so
+initializes the backend."""
 
 _LAZY = {
     "StageTimer": ".timing",

@@ -79,3 +79,90 @@ class TestKittiIO:
         seq = kitti.KittiSequence(fake_kitti, "04")
         t_err, r_err = ate.rpe(seq.gt_poses, seq.gt_poses)
         assert t_err < 1e-9 and r_err < 1e-3
+
+
+def _png_with_filters(path, img, filters):
+    """Independent PNG encoder: row y filtered with filters[y] (0-4)."""
+    import struct
+    import zlib
+
+    a = img.astype(np.int64)
+    H, W = a.shape
+    raw = bytearray()
+    for y in range(H):
+        ft = filters[y % len(filters)]
+        up = a[y - 1] if y else np.zeros(W, np.int64)
+        left = np.concatenate([[0], a[y, :-1]])
+        upleft = np.concatenate([[0], up[:-1]])
+        if ft == 0:
+            pred = np.zeros(W, np.int64)
+        elif ft == 1:
+            pred = left
+        elif ft == 2:
+            pred = up
+        elif ft == 3:
+            pred = (left + up) // 2
+        else:
+            p = left + up - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        raw.append(ft)
+        raw.extend(((a[y] - pred) % 256).astype(np.uint8).tobytes())
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(
+            ">I", zlib.crc32(tag + body)
+        )
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(bytes(raw))))
+        f.write(chunk(b"IEND", b""))
+
+
+class TestPngCodec:
+    def _image(self, H=37, W=53, seed=0):
+        rng = np.random.RandomState(seed)
+        yy, xx = np.mgrid[0:H, 0:W]
+        smooth = (xx * 3 + yy * 2) % 256
+        return ((smooth + rng.randint(0, 40, (H, W))) % 256).astype(np.uint8)
+
+    def test_write_read_roundtrip(self, tmp_path):
+        img = self._image()
+        path = str(tmp_path / "a.png")
+        kitti.write_png_gray(path, img)
+        np.testing.assert_array_equal(kitti.read_png_gray(path), img)
+        got = kitti.read_image(path)
+        assert got.dtype == np.float32 and got.shape == img.shape
+
+    @pytest.mark.parametrize("filters", [[0], [1], [2], [3], [4], [4, 3, 2, 1, 0]])
+    def test_reads_every_filter_type(self, tmp_path, filters):
+        img = self._image(seed=len(filters) + filters[0])
+        path = str(tmp_path / "f.png")
+        _png_with_filters(path, img, filters)
+        np.testing.assert_array_equal(kitti.read_png_gray(path), img)
+
+    def test_agrees_with_pillow(self, tmp_path):
+        Image = pytest.importorskip("PIL.Image")
+        img = self._image(H=64, W=80, seed=3)
+        ours = str(tmp_path / "ours.png")
+        kitti.write_png_gray(ours, img)
+        np.testing.assert_array_equal(np.asarray(Image.open(ours)), img)
+        theirs = str(tmp_path / "theirs.png")
+        Image.fromarray(img).save(theirs)  # Pillow picks its own filters
+        np.testing.assert_array_equal(kitti.read_png_gray(theirs), img)
+
+    def test_rejects_non_grayscale(self, tmp_path):
+        import struct
+        import zlib
+
+        path = tmp_path / "rgb.png"
+        ihdr = struct.pack(">IIBBBBB", 2, 2, 8, 2, 0, 0, 0)
+        body = b"IHDR" + ihdr
+        with open(path, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n")
+            f.write(struct.pack(">I", len(ihdr)) + body)
+            f.write(struct.pack(">I", zlib.crc32(body)))
+        with pytest.raises(ValueError, match="grayscale"):
+            kitti.read_png_gray(str(path))

@@ -1,7 +1,7 @@
 """Multi-process distribution layer: ≥2 OS processes via jax.distributed.
 
-The reference is single-process (SURVEY §2.10 P7); this is the fresh
-TPU-native control plane the framework adds. The test spawns two REAL OS
+The reference is single-process (SURVEY §2.10 P7); this is the
+multi-process control plane the framework adds. The test spawns two REAL OS
 processes (each with 2 virtual CPU devices → a 4-device global mesh over
 gloo collectives), runs the full distributed Nielsen-LM across them, and
 checks the result against the single-process engine on the same problem.
@@ -35,7 +35,7 @@ def _worker_env(devices_per_proc: int) -> dict:
         f"--xla_force_host_platform_device_count={devices_per_proc}"
     )
     env["JAX_PLATFORMS"] = "cpu"
-    env.pop("SQRTLM_TEST_TPU", None)
+    env.pop("SQRTLM_TEST_GPU", None)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return env
 

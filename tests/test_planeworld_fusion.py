@@ -28,13 +28,7 @@ def test_kitti_layout_fusion_reference_gates(tmp_path):
     generate(root, seq="00", n_frames=n, seed=0, step=0.8, log=lambda *a: None)
 
     out = str(tmp_path / "traj.txt")
-    env = dict(
-        os.environ,
-        JAX_PLATFORMS="cpu",
-        JAX_COMPILATION_CACHE_DIR=os.path.expanduser(
-            "~/.cache/sqrtlm_jax_tests"
-        ),
-    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [
             sys.executable, os.path.join(REPO, "run_kitti.py"),

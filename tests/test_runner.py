@@ -17,7 +17,7 @@ R_CL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]], np.float3
 
 
 def make_mini_kitti(root, n_frames=8):
-    from PIL import Image
+    from sqrtlm_slam_tpu.io.kitti import write_png_gray
 
     seq_dir = os.path.join(root, "sequences", "00")
     os.makedirs(os.path.join(seq_dir, "image_0"))
@@ -41,8 +41,9 @@ def make_mini_kitti(root, n_frames=8):
     gt_lines = []
     for i, T in enumerate(poses):
         img, depth = world.render(T, cam)
-        Image.fromarray(np.asarray(img).astype(np.uint8)).save(
-            os.path.join(seq_dir, "image_0", f"{i:06d}.png")
+        write_png_gray(
+            os.path.join(seq_dir, "image_0", f"{i:06d}.png"),
+            np.asarray(img).astype(np.uint8),
         )
         # Backproject depth -> camera cloud -> velodyne frame -> .bin.
         d = np.asarray(depth)
@@ -72,11 +73,7 @@ def test_runner_depth_mode(tmp_path):
     os.makedirs(root)
     make_mini_kitti(root)
     out = str(tmp_path / "traj.txt")
-    env = dict(
-        os.environ,
-        JAX_PLATFORMS="cpu",
-        JAX_COMPILATION_CACHE_DIR="/tmp/jaxcache",
-    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, "run_kitti.py", "--root", root, "--seq", "00",
          "--mode", "depth", "--out", out, "--max-features", "600", "--json"],

@@ -21,16 +21,27 @@ def problems():
     return flat, bucketed
 
 
-def test_chol3x3_and_trinv():
+def test_damped_minv_inverts_damped_hll():
+    """The closed-form rows factor gives Hll_d^{-1} = Minv^T Minv, with
+    invalid landmarks mapped to identity blocks."""
     rng = np.random.RandomState(0)
     A = rng.randn(32, 3, 3).astype(np.float32)
     M = A @ A.transpose(0, 2, 1) + 0.5 * np.eye(3, dtype=np.float32)
-    Lc = np.asarray(sb.chol3x3(jnp.asarray(M)))
-    np.testing.assert_allclose(Lc @ Lc.transpose(0, 2, 1), M, rtol=1e-4, atol=1e-4)
-    Minv = np.asarray(sb.trinv_lower3x3(jnp.asarray(Lc)))
+    valid = np.arange(32) % 7 != 0
+    mu = 1e-2
+    minv6 = sb._damped_minv(jnp.asarray(M.reshape(32, 9).T), jnp.asarray(valid), mu)
+    m11, m21, m22, m31, m32, m33 = np.asarray(minv6)
+    z = np.zeros_like(m11)
+    Minv = np.stack(
+        [np.stack([m11, z, z], -1), np.stack([m21, m22, z], -1),
+         np.stack([m31, m32, m33], -1)], -2,
+    )
+    M_d = M + mu * M * np.eye(3) + 1e-8 * np.eye(3)
+    M_d[~valid] = np.eye(3)
     np.testing.assert_allclose(
-        Minv @ Lc, np.broadcast_to(np.eye(3, dtype=np.float32), (32, 3, 3)),
-        rtol=1e-4, atol=1e-4,
+        Minv.transpose(0, 2, 1) @ Minv @ M_d,
+        np.broadcast_to(np.eye(3, dtype=np.float32), (32, 3, 3)),
+        rtol=1e-3, atol=1e-3,
     )
 
 
@@ -110,35 +121,27 @@ def test_global_ba_cg_converges(problems):
 
 
 def test_schur_matvec_rows_matches():
-    """The rows-layout CG matvec must reproduce _schur_matvec (same S)."""
-    import jax
-    import jax.numpy as jnp
-
+    """The matrix-free CG matvec must reproduce the explicit reduced system
+    S of the dense step (same damping) on the free poses."""
     P, L, K = 8, 256, 4
     flat, _ = make_ba_problem(seed=3, P=P, L=L, stereo_frac=0.5, obs_per_landmark=K)
     prob = sb.from_flat(flat, K)
     cam = DEFAULT_CAM
     mu = jnp.float32(1e-3)
-    r, U, Minv, Hpp_d, bp, bl, chi2 = sb._cg_context(
-        prob, cam, prob.obs_valid, 2.447, mu
-    )
+    obs = sb.prepare_obs(prob, prob.obs_valid)
+    red = sb.assemble(prob, obs, cam, 2.447)
+    pieces = sb._pieces_tail(prob, red, mu, obs.cam)
     rng = np.random.RandomState(0)
     v = jnp.asarray(rng.randn(P, 6).astype(np.float32))
-    ref = sb._schur_matvec(v, U, Minv, Hpp_d, prob.obs_cam, prob.pose_fixed)
-
-    # rows context from the XLA tensors
-    u18 = U.reshape(L, K, 18).transpose(2, 1, 0)
-    # minv6 rows from the same damped Hll as _cg_context (reconstruct via Minv)
-    minv6 = jnp.stack(
-        [
-            Minv[:, 0, 0], Minv[:, 1, 0], Minv[:, 1, 1],
-            Minv[:, 2, 0], Minv[:, 2, 1], Minv[:, 2, 2],
-        ]
-    )
-    got = sb._schur_matvec_rows(
-        v, u18, minv6, Hpp_d, prob.obs_cam, prob.pose_fixed
+    free = ~np.asarray(prob.pose_fixed)
+    v_free = jnp.where(prob.pose_fixed[:, None], 0.0, v)
+    ref = (np.asarray(pieces.S_half) @ np.asarray(v_free).reshape(-1)).reshape(P, 6)
+    got = sb._schur_matvec(
+        v, red.u18, pieces.minv6, sb._damp_hpp(red.Hpp, mu), obs.cam,
+        prob.pose_fixed,
     )
     np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=1e-4,
-        atol=1e-5 * float(jnp.abs(ref).max()),
+        np.asarray(got)[free], ref[free], rtol=1e-4,
+        atol=1e-5 * float(np.abs(ref).max()),
     )
+    np.testing.assert_array_equal(np.asarray(got)[~free], 0.0)

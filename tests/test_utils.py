@@ -99,3 +99,30 @@ def test_render_slam_result(tmp_path):
     import os
 
     assert os.path.getsize(out) > 10000
+
+
+class TestJaxSetup:
+    def test_cache_dir_honours_env_var(self, monkeypatch, tmp_path):
+        from sqrtlm_slam_tpu.utils import cache
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.cache_dir() == str(tmp_path)
+
+    def test_cache_dir_default_is_in_checkout(self, monkeypatch):
+        from sqrtlm_slam_tpu.utils import cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cache.cache_dir() == os.path.join(repo, ".jax_cache")
+        with open(os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+
+    def test_configure_jax_sets_precision_and_cache(self, monkeypatch):
+        import jax
+
+        from sqrtlm_slam_tpu.utils import cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        cache.configure_jax()
+        assert jax.config.jax_default_matmul_precision == "highest"
+        assert jax.config.jax_compilation_cache_dir == cache.DEFAULT_CACHE_DIR
